@@ -6,13 +6,26 @@
 Builds every CUDA kernel of the port from ``csrc/``, holds each against
 its plain PyTorch version on the card (``filter_sgd`` at the production
 shapes and on every batch the lifting path below launches, with that
-batch's own inputs), then drives the serving chain once through the
-port's entry points: synthetic 2D keypoint clips (lengths 64-1920, from a
-seed) -> ``lift_clips`` (900 cycles, the ``filter_sgd`` kernel) -> xyz ->
-aa -> r6d -> 192-frame windows -> the v1 ``arm2wh`` generator at full
-width (36 -> 252, default_size 256, seeded weights) -> ``save_results``.
-The lifting (shortest and longest clips), the generator's raw output and
-the result xyz are checked against the port's CPU path.
+batch's own inputs; ``robust_loss`` at the trainer's shapes with alpha
+exactly 0, exactly 2, spread over (1, 4) and at 2 +- 1 ulp), then drives
+two paths through the port's entry points.
+
+Serving: synthetic 2D keypoint clips (lengths 64-1920, from a seed) ->
+``lift_clips`` (900 cycles, the ``filter_sgd`` kernel) -> xyz -> aa -> r6d
+-> 192-frame windows -> the v1 ``arm2wh`` generator at full width (36 ->
+252, default_size 256, seeded weights) -> ``save_results``.  The lifting
+(shortest and longest clips), the generator's raw output and the result
+xyz are checked against the port's CPU path.
+
+Training: the r6d clips the lifting produced become the train and val
+pickles of a temporary data directory, and the port's ``train_gan.main``
+runs 4 epochs there at full width (batch 128, ``--loss RobustLoss
+--disc_label_smooth``: epochs 0-2 train G and validate, epoch 3 trains D),
+every regression loss through the ``robust_loss`` kernel; then
+``run_inference`` from the checkpoint it saved.  Checked: finite losses,
+the kernel's launch count, which parameters each epoch moved, the latents
+bit for bit, one G and one D step on the card against the same step on the
+CPU, and the checkpoint's strict reload.
 
 Prints one line per phase, then a JSON line describing each kernel, the
 card's name and power limit (``nvidia-smi``), and as the last line
@@ -33,19 +46,31 @@ import time
 import numpy as np
 import torch
 
-from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import infer
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import (
+    infer,
+    train_gan,
+)
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
     io,
     standardize,
     windows,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import engine
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.losses.robust import (
+    AdaptiveLossFunction,
+)
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import registry
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
     build,
     filter_sgd as fs,
     kinematics,
+    robust_loss as rl,
     rotations,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
+    checkpoint as ckpt_lib,
+    data as data_lib,
+    gan,
 )
 
 SEED = 0
@@ -159,6 +184,115 @@ def kernel_phase(clips):
     return prod, path
 
 
+# robust loss, kernel vs plain: the JAX package's own tolerances
+# (tests/test_pallas_kernels.py:108 for the loss, :122 for dx)
+ROBUST_LOSS_TOL = (1e-5, 1e-6)  # rtol, atol
+ROBUST_DX_TOL = (1e-4, 1e-6)
+# (N, D): the G step's, the val step's and the article's batch of
+# (B, 192 * 252) residuals, and one ragged shape
+ROBUST_SHAPES = ((128, 48384), (64, 48384), (256, 48384), (7, 1000))
+
+
+def robust_inputs(rng, N, D, device):
+    """x ~ N(0, 1); c spread over (1e-3, 3); alpha by column, in groups of
+    eight: exactly 0, exactly 2, four spread over (1, 4), and 2 +- 1 ulp.
+    Returns (x, alpha, c, mask of the +-1 ulp columns)."""
+    x = rng.randn(N, D).astype(np.float32)
+    c = rng.uniform(1e-3, 3.0, size=(1, D)).astype(np.float32)
+    alpha = rng.uniform(1.0, 4.0, size=(1, D)).astype(np.float32)
+    col = np.arange(D) % 8
+    alpha[0, col == 0] = 0.0
+    alpha[0, col == 1] = 2.0
+    two = np.float32(2.0)
+    alpha[0, col == 6] = np.nextafter(two, np.float32(3.0))
+    alpha[0, col == 7] = np.nextafter(two, np.float32(1.0))
+    ulp = torch.from_numpy(col >= 6).to(device)
+    return (*(torch.from_numpy(a).to(device) for a in (x, alpha, c)), ulp)
+
+
+def _excess(got, want, tol, cols):
+    """(max |got - want|, max of |got - want| / (atol + rtol |want|)) over
+    the columns ``cols``."""
+    rtol, atol = tol
+    err = (got - want).abs()[:, cols]
+    return float(err.max()), float((err / (atol + rtol * want.abs()[:, cols])).max())
+
+
+def hold_robust(N, D, rng, reps=20):
+    """The robust-loss kernel against its plain version on the card: loss
+    and dx against ``robust_lossfun_plain`` and its autograd.  The columns
+    with alpha = 2 +- 1 ulp are reported and not held: there the general
+    branch is (eps / alpha)((u / eps + 1)^(alpha/2) - 1), a cancellation."""
+    x, alpha, c, ulp = robust_inputs(rng, N, D, "cuda")
+    loss, dx = rl.robust_loss_and_dx(x, alpha, c)
+    xg = x.clone().requires_grad_(True)
+    want = rl.robust_lossfun_plain(xg, alpha, c)
+    (want_dx,) = torch.autograd.grad(want.sum(), xg)
+    want = want.detach()
+    torch.cuda.synchronize()
+    if not (torch.isfinite(loss).all() and torch.isfinite(dx).all()):
+        raise AssertionError(f"robust_loss kernel gave non-finite values at {(N, D)}")
+    e_loss, x_loss = _excess(loss, want, ROBUST_LOSS_TOL, ~ulp)
+    e_dx, x_dx = _excess(dx, want_dx, ROBUST_DX_TOL, ~ulp)
+    u_loss, ux_loss = _excess(loss, want, ROBUST_LOSS_TOL, ulp)
+    u_dx, ux_dx = _excess(dx, want_dx, ROBUST_DX_TOL, ulp)
+
+    def plain():
+        xp = x.clone().requires_grad_(True)
+        torch.autograd.grad(rl.robust_lossfun_plain(xp, alpha, c).sum(), xp)
+
+    # the wrapper's own host cost (~50 us) is of the kernel's order, so the
+    # kernel's time is its device span under the profiler; the wrapper's
+    # time between two events, host-bound at the small shapes, goes beside it
+    wrapper_ms = cuda_ms(lambda: rl.robust_loss_and_dx(x, alpha, c), reps=reps)
+    _, by_name = profiled(lambda: [rl.robust_loss_and_dx(x, alpha, c)
+                                   for _ in range(reps)])
+    spans = [v for k, v in by_name.items() if "robust_loss_kernel" in k]
+    if not spans:
+        raise AssertionError("the profiler saw no robust_loss_kernel span: "
+                             f"{sorted(by_name)}")
+    ms = 1e3 * sum(spans) / reps
+    plain_ms = cuda_ms(plain, reps=3)
+    byte_s = (rl.BYTES_PER_ELEMENT * N * D + 8 * D) / PEAK_BYTES
+    flop_s = rl.FLOPS_PER_ELEMENT * N * D / PEAK_FP32_FLOPS
+    row = {
+        "N": N, "D": D, "max_abs_err": max(e_loss, e_dx),
+        "loss_err_over_tol": x_loss, "dx_err_over_tol": x_dx,
+        "ulp_columns": {"loss_abs_err": u_loss, "loss_err_over_tol": ux_loss,
+                        "dx_abs_err": u_dx, "dx_err_over_tol": ux_dx},
+        "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(byte_s, flop_s),
+        "bound_by": "bytes" if byte_s >= flop_s else "operations",
+    }
+    log("kernel robust_loss " + json.dumps(row))
+    if not (x_loss <= 1.0 and x_dx <= 1.0):
+        raise AssertionError(f"robust_loss disagrees with its plain version: {row}")
+    return row
+
+
+def robust_kernel_phase():
+    """Hold the robust-loss kernel at ``ROBUST_SHAPES``; also at
+    the trainer's own parameters (alpha == 2, c == 0.5 in every column)."""
+    rng = np.random.RandomState(SEED + 1)
+    rows = [hold_robust(N, D, rng) for N, D in ROBUST_SHAPES]
+    x = torch.from_numpy(rng.randn(128, 48384).astype(np.float32)).to("cuda")
+    two = torch.full((1, 48384), 2.0, device="cuda")
+    half = torch.full((1, 48384), 0.5, device="cuda")
+    loss, dx = rl.robust_loss_and_dx(x, two, half)
+    want = rl.robust_lossfun_plain(x, two, half)
+    err = max(float((loss - want).abs().max()), float((dx - 4.0 * x).abs().max()))
+    log(f"robust_loss at alpha == 2, c == 0.5, (128, 48384): max abs err {err:.3e}")
+    if not err <= 1e-6 * float(want.max()):
+        raise AssertionError("robust_loss off at the trainer's parameters")
+    return rows
+
+
+def ptxas_line(name):
+    return " | ".join(
+        ln.strip() for ln in build.build_log.get(name, {}).get("ptxas", "").splitlines()
+        if "registers" in ln)
+
+
 def synthetic_clips(rng, n):
     """OpenPose-like (T, 150) clips, T spread over 64..1920 (demo.py:65-67)."""
     lengths = rng.randint(64, 1921, size=n)
@@ -184,12 +318,9 @@ def lift_close(gpu, cpu):
             float(np.linalg.norm(g3 - c3, axis=-1).mean()))
 
 
-def path_phase(clips):
-    """The serving chain on the card, checked against the CPU path; returns
-    the filter_sgd launches of the main path."""
+def lift_to_r6d(clips):
+    """2D clips -> lifted xyz clips -> r6d clips, on the card."""
     frames = sum(c.shape[0] for c in clips)
-
-    fs.filter_sgd.launches = 0  # counts of the main path start here
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     xyz = engine.lift_clips(clips, n_cycles=N_CYCLES, device="cuda")
@@ -202,7 +333,14 @@ def path_phase(clips):
         raise AssertionError("lifted clips are not finite (T, 150) arrays")
 
     aa = kinematics.xyz_to_aa(xyz, device="cuda")
-    r6d = rotations.aa_to_rot6d(aa, device="cuda")
+    return xyz, rotations.aa_to_rot6d(aa, device="cuda")
+
+
+def path_phase(clips):
+    """The serving chain on the card, checked against the CPU path; returns
+    the filter_sgd launches of the main path and the r6d clips it made."""
+    fs.filter_sgd.launches = 0  # counts of the main path start here
+    xyz, r6d = lift_to_r6d(clips)
     win = windows.make_equal_len(r6d, method="cutting+reflect")
     X = win[:, :, :36].astype(np.float32)
     Y = win[:, :, 36:288].astype(np.float32)
@@ -215,7 +353,7 @@ def path_phase(clips):
     net = registry.build_generator("v1", 36, 252, default_size=256, seed=SEED,
                                    device="cuda")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        return _enhance_and_check(net, tmp, clips, xyz, X, Xs, sY, mY)
+        return _enhance_and_check(net, tmp, clips, xyz, X, Xs, sY, mY), r6d
 
 
 def _enhance_and_check(net, tmp, clips, xyz, X, Xs, sY, mY):
@@ -296,10 +434,248 @@ def _enhance_and_check(net, tmp, clips, xyz, X, Xs, sY, mY):
     return launches
 
 
+# training phase: v1 arm2wh at full width, the reference's batch size
+TRAIN_BATCH = 128
+TRAIN_EPOCHS = 4  # epochs 0-2 train G and validate, epoch 3 trains D
+N_VAL_CLIPS = 256
+# One step on the card against the same step on the CPU, dropout 0, with
+# cuDNN held to its deterministic algorithms for that step.  The loss is
+# held relative, the running statistics absolute (the CPU tests' 5e-6,
+# tests/test_torch_gan.py).  The generator's gradients are ill-conditioned
+# at float32 (train-mode BatchNorm backward over channels of tiny variance):
+# on these clips the CPU's float32 gradient is about 1% of the largest entry
+# away from a float64 evaluation of the same step.  So the card's gradients
+# are held against that float64 evaluation: they may be STEP_GRAD_FACTOR
+# times as far from it as the CPU's float32 ones, no further.
+# Adam's first update is lr * g / (|g| + eps), a sign: an entry whose
+# float64 gradient is within STEP_NOISE_FACTOR of the CPU's float32 error in
+# its tensor is noise at float32 and is masked, as the CPU tests mask
+# 0 < |g| < 1e-6 at their loss of order 1.  The mask is built from the
+# float64 step and the CPU's error alone: nothing the card computes widens
+# it.  Outside the mask the card's and the CPU's parameters must agree to
+# STEP_ATOL; inside it they may differ by the 2 * lr a flipped sign moves
+# them, and no more; the mask's share is reported.
+STEP_LOSS_RTOL = 1e-5
+STEP_ATOL = 5e-6
+STEP_GRAD_FACTOR = 2.0
+STEP_NOISE_FACTOR = 4.0
+STEP_LR = 1e-4  # GanConfig's default learning rate
+
+
+def _snapshot(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def _moved(module, before):
+    """Did any parameter or running statistic differ from the snapshot?"""
+    return any(not torch.equal(v, before[k]) for k, v in module.state_dict().items()
+               if not k.endswith("num_batches_tracked"))
+
+
+def _train_args(tmp, data_dir):
+    return train_gan.build_parser().parse_args([
+        "--base_path", tmp, "--data_dir", data_dir,
+        "--model_path", os.path.join(tmp, "models"), "--exp_name", "smoke",
+        "--num_epochs", str(TRAIN_EPOCHS), "--batch_size", str(TRAIN_BATCH),
+        "--loss", "RobustLoss", "--disc_label_smooth", "--device", "cuda",
+    ])
+
+
+def _one_step(kind, x, y, device, dtype=torch.float32):
+    """(loss, module stepped, its gradients) after one ``kind`` step from
+    the seeded weights, dropout 0."""
+    cfg = gan.GanConfig(loss="RobustLoss", disc_label_smooth=True,
+                        batch_size=x.shape[0], dropout_rate=0.0)
+    tr = gan.GanTrainer(cfg, device=device)
+    for m in (tr.generator, tr.discriminator, tr.adaptive):
+        m.to(dtype)
+    before = rl.robust_lossfun.launches
+    assert tr.cfg.learning_rate == STEP_LR
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss = float(tr._step(kind)(
+            torch.from_numpy(x).to(device=device, dtype=dtype),
+            torch.from_numpy(y).to(device=device, dtype=dtype)))
+    finally:
+        torch.backends.cudnn.deterministic = was
+    if device == "cuda" and rl.robust_lossfun.launches != before + (kind == "g"):
+        raise AssertionError(f"the card's {kind} step did not go through the kernel")
+    module = tr.generator if kind == "g" else tr.discriminator
+    grads = {k: p.grad.double().cpu() for k, p in module.named_parameters()}
+    return loss, {k: v.cpu() for k, v in module.state_dict().items()}, grads
+
+
+def step_against_cpu(kind, x, y):
+    """One ``kind`` step ('g' or 'd') on the card, on the CPU, and on the
+    CPU in float64, from the same seeded weights and batch.  Fails beyond
+    the STEP_* tolerances; returns what came out."""
+    loss_card, sd_card, g_card = _one_step(kind, x, y, "cuda")
+    loss_cpu, sd_cpu, g_cpu = _one_step(kind, x, y, "cpu")
+    _, _, g_ref = _one_step(kind, x, y, "cpu", torch.float64)
+    worst = worst_masked = worst_stat = err_card = err_cpu = grad_max = 0.0
+    masked = masked_fixed = total = 0
+    for k, w in sd_cpu.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        diff = (sd_card[k] - w).abs()
+        if k not in g_ref:
+            worst_stat = max(worst_stat, float(diff.max()))
+            continue
+        e_card = float((g_card[k] - g_ref[k]).abs().max())
+        e_cpu = float((g_cpu[k] - g_ref[k]).abs().max())
+        err_card, err_cpu = max(err_card, e_card), max(err_cpu, e_cpu)
+        g = g_ref[k].abs()
+        grad_max = max(grad_max, float(g.max()))
+        keep = g >= STEP_NOISE_FACTOR * e_cpu
+        total += keep.numel()
+        masked += int((~keep).sum())
+        masked_fixed += int(((g > 0) & (g < 1e-6)).sum())  # the CPU tests' mask
+        worst = max(worst, float((diff * keep).max()))
+        worst_masked = max(worst_masked, float((diff * ~keep).max()))
+    row = {
+        "step": kind, "loss_card": loss_card, "loss_cpu": loss_cpu,
+        "loss_rel_err": abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1e-30),
+        "running_stat_err": worst_stat, "grad_abs_max": grad_max,
+        "grad_err_card_vs_float64": err_card, "grad_err_cpu_vs_float64": err_cpu,
+        "param_err_outside_mask": worst, "param_err_inside_mask": worst_masked,
+        "masked_share": masked / total,
+        "masked_share_of_1e-6_mask": masked_fixed / total,
+    }
+    log("step card vs cpu " + json.dumps(row))
+    if not (row["loss_rel_err"] <= STEP_LOSS_RTOL and worst_stat <= STEP_ATOL
+            and worst <= STEP_ATOL and worst_masked <= 2 * STEP_LR + STEP_ATOL
+            and err_card <= STEP_GRAD_FACTOR * err_cpu):
+        raise AssertionError(f"the card's {kind} step disagrees with the CPU's: {row}")
+    return row
+
+
+def timed_epochs(trainer, X, Y, kind, batch_size, resident, repeats=5,
+                 deterministic=False):
+    """Steps/s and frames/s of ``repeats`` epochs of one kind after one
+    warm-up epoch; the host clock around work that ends in a synchronise.
+    ``deterministic`` sets ``torch.backends.cudnn.deterministic`` meanwhile."""
+    staged = trainer.stage(X, Y) if resident else None
+    order = np.arange(len(X))
+
+    def epoch():
+        if resident:
+            return trainer.run_epoch_resident(*staged, order, kind, batch_size)
+        return trainer.run_epoch(X, Y, kind, batch_size)
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        epoch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            epoch()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = was
+    steps = repeats * (len(X) // batch_size)
+    log(f"train rate {kind} epoch ({'resident' if resident else 'host batches'}, "
+        f"B={batch_size}{', cudnn.deterministic' if deterministic else ''}): "
+        f"{steps} steps in {dt:.3f} s = {steps / dt:.2f} steps/s, "
+        f"{steps * batch_size * X.shape[1] / dt:.1f} frames/s")
+
+
+def train_phase(r6d):
+    """GAN training of v1 on the card through the port's CLI entry point,
+    then inference from its checkpoint; returns the robust-loss launches of
+    that run."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        io.save_binary(list(r6d), os.path.join(data_dir, "r6d_train"))
+        io.save_binary(list(r6d[-N_VAL_CLIPS:]), os.path.join(data_dir, "r6d_val"))
+        args = _train_args(tmp, data_dir)
+
+        # weights are a function of the seed: the state before epoch 0
+        first = gan.GanTrainer(gan.GanConfig(loss="RobustLoss"), device="cuda")
+        state = {"g": _snapshot(first.generator), "d": _snapshot(first.discriminator),
+                 "latents": _snapshot(first.adaptive)}
+        del first
+        seen = []
+
+        def hook(epoch, kind, trainer, losses):
+            if not all(np.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"epoch {epoch}: non-finite loss {losses}")
+            g_moved = _moved(trainer.generator, state["g"])
+            d_moved = _moved(trainer.discriminator, state["d"])
+            if (g_moved, d_moved) != ((True, False) if kind == "g" else (False, True)):
+                raise AssertionError(
+                    f"epoch {epoch} ({kind}): generator moved {g_moved}, "
+                    f"discriminator moved {d_moved}")
+            if _moved(trainer.adaptive, state["latents"]):
+                raise AssertionError(f"epoch {epoch}: the robust latents moved")
+            state["g"] = _snapshot(trainer.generator)
+            state["d"] = _snapshot(trainer.discriminator)
+            seen.append((epoch, kind, losses))
+
+        rl.robust_lossfun.launches = 0  # counts of the training path start here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = train_gan.main(args, epoch_hook=hook)
+        torch.cuda.synchronize()
+        launches = rl.robust_lossfun.launches  # end of the training path
+        log(f"train_gan.main: {TRAIN_EPOCHS} epochs in {time.perf_counter() - t0:.3f} s, "
+            f"best val {best:.6f}, robust_loss launches {launches}; "
+            + "; ".join(f"epoch {e} {k} {json.dumps(l)}" for e, k, l in seen))
+
+        data = data_lib.load_data(data_dir, "arm2wh", os.path.join(tmp, "stats"),
+                                  "smoke", np.random.RandomState(23456), base_path=tmp)
+        X, Y, vX, vY = (data[k] for k in ("train_X", "train_Y", "val_X", "val_Y"))
+        g_batches = sum(k == "g" for _, k, _ in seen) * (len(X) // TRAIN_BATCH)
+        val_batches = sum(k == "g" for _, k, _ in seen) * (len(vX) // (TRAIN_BATCH // 2))
+        if [k for _, k, _ in seen] != ["g", "g", "g", "d"]:
+            raise AssertionError(f"unexpected schedule {seen}")
+        if launches != g_batches + val_batches or launches <= 0:
+            raise AssertionError(
+                f"robust_loss launched {launches} times for {g_batches} G and "
+                f"{val_batches} val batches")
+
+        # the checkpoint reloads strictly and serves
+        ckpt = os.path.join(args.model_path, "lastCheckpoint_smoke.pth")
+        net = registry.build_generator("v1", 36, 252, device="cuda")
+        net.load_state_dict(ckpt_lib.load_generator_state(ckpt), strict=True)
+        out, err = infer.run_inference(net, vX, batch_size=TRAIN_BATCH,
+                                       num_samples=len(vX), test_Y=vY, device="cuda")
+        log(f"inference from the trained checkpoint: {out.shape}, L1 {err:.6f}")
+        if out.shape != vY.shape or not np.isfinite(out).all():
+            raise AssertionError(f"bad output from the trained checkpoint {out.shape}")
+        resumed = gan.GanTrainer(gan.GanConfig(loss="RobustLoss"), device="cuda")
+        resumed.load_checkpoint_payload(ckpt_lib.load_checkpoint(ckpt, "cuda"))
+
+    ad = AdaptiveLossFunction(252 * 192).to("cuda")
+    log(f"default latents on the card: alpha == 2.0 exactly "
+        f"{bool((ad.alpha() == 2.0).all())}, c == 0.5 exactly "
+        f"{bool((ad.scale() == 0.5).all())}")
+
+    step_against_cpu("g", X[:TRAIN_BATCH], Y[:TRAIN_BATCH])
+    step_against_cpu("d", X[:TRAIN_BATCH], Y[:TRAIN_BATCH])
+
+    trainer = gan.GanTrainer(gan.GanConfig(loss="RobustLoss", disc_label_smooth=True),
+                             device="cuda")
+    for kind, bs, a, b in (("g", TRAIN_BATCH, X, Y), ("d", TRAIN_BATCH, X, Y),
+                           ("val", TRAIN_BATCH // 2, vX, vY)):
+        for resident in (False, True):
+            timed_epochs(trainer, a, b, kind, bs, resident)
+    timed_epochs(trainer, X, Y, "g", TRAIN_BATCH, True, deterministic=True)
+    timed_epochs(trainer, X, Y, "d", TRAIN_BATCH, True, deterministic=True)
+    staged = trainer.stage(X, Y)
+    log_trace(f"one G epoch, {len(X) // TRAIN_BATCH} steps of B={TRAIN_BATCH} (resident)",
+              *profiled(lambda: trainer.run_epoch_resident(
+                  *staged, np.arange(len(X)), "g", TRAIN_BATCH)), "robust_loss")
+    return launches
+
+
 def profiled(fn):
-    """Run ``fn`` under torch.profiler: (wall s, device-busy s, filter_sgd
-    kernel s, top kernels by device time).  Device time is the sum of the
-    CUDA kernel spans (one stream, so they do not overlap)."""
+    """Run ``fn`` under torch.profiler: (wall s, {kernel name: device s}).
+    The device-busy time is the sum of the values (one stream, so the CUDA
+    kernel spans do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -311,10 +687,22 @@ def profiled(fn):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
+    return wall, by_name
+
+
+def log_trace(label, wall, by_name, kernel):
+    """One line for a traced window: wall, device busy, idle share, the time
+    in the kernels whose name holds ``kernel``, and the top five."""
     busy = sum(by_name.values())
-    filt = sum(v for k, v in by_name.items() if "filter_sgd" in k)
+    if busy <= 0:
+        log(f"trace {label}: wall {wall:.3f} s; device time not measured "
+            "(the profiler saw no CUDA kernels)")
+        return
+    own = sum(v for k, v in by_name.items() if kernel in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return wall, busy, filt, top
+    log(f"trace {label}: wall {wall:.3f} s, device busy {busy:.3f} s "
+        f"(idle share {1 - busy / wall:.3f}), {kernel} {own:.4f} s; top: "
+        + "; ".join(f"{n[:60]} {t:.4f} s" for n, t in top))
 
 
 def profile_phase(clips, Xs):
@@ -329,14 +717,7 @@ def profile_phase(clips, Xs):
              registry.build_generator("v1", 36, 252, seed=SEED, device="cuda"),
              Xs, batch_size=128, num_samples=len(Xs), device="cuda")),
     ):
-        wall, busy, filt, top = profiled(fn)
-        if busy <= 0:
-            log(f"trace {label}: wall {wall:.3f} s; device time not measured "
-                "(the profiler saw no CUDA kernels)")
-            continue
-        log(f"trace {label}: wall {wall:.3f} s, device busy {busy:.3f} s "
-            f"(idle share {1 - busy / wall:.3f}), filter_sgd {filt:.3f} s; top: "
-            + "; ".join(f"{n[:60]} {t:.4f} s" for n, t in top))
+        log_trace(label, *profiled(fn), "filter_sgd")
 
 
 def main() -> int:
@@ -352,16 +733,20 @@ def main() -> int:
     log(smi)
 
     t0 = time.perf_counter()
-    build.load("filter_sgd")
-    ptxas = [ln.strip() for ln in build.build_log.get("filter_sgd", {})
-             .get("ptxas", "").splitlines() if "registers" in ln]
-    log(f"build filter_sgd: {time.perf_counter() - t0:.2f} s; " + " | ".join(ptxas))
+    for name in ("filter_sgd", "robust_loss"):
+        build.load(name)
+    log(f"build: {time.perf_counter() - t0:.2f} s for both; "
+        + "; ".join(f"{n} {build.build_log[n]['seconds']:.2f} s: {ptxas_line(n)}"
+                    for n in ("filter_sgd", "robust_loss") if n in build.build_log))
 
     clips = synthetic_clips(np.random.RandomState(SEED), N_CLIPS)
+    robust = robust_kernel_phase()
     prod, path = kernel_phase(clips)
-    launches = path_phase(clips)
+    launches, r6d = path_phase(clips)
+    robust_launches = train_phase(r6d)
 
     main_row = prod[-1]  # B=128, T=1920: the longest production bucket
+    robust_row = robust[0]  # (128, 48384): the G step's residual
     kernels = [{
         "name": "filter_sgd",
         "route": "cuda",
@@ -374,6 +759,23 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the filter
+    }, {
+        "name": "robust_loss",
+        "route": "cuda",
+        "source": "multimodal_hand_pose_enhancement_for_sign_language_tpu_torch/csrc/robust_loss.cu",
+        "replaces": "multimodal_hand_pose_enhancement_for_sign_language_tpu/ops/pallas_kernels.py:278",
+        "launches": robust_launches,
+        # the largest difference in loss or dx over the held shapes; the
+        # values themselves reach 1e13 there (c down to 1e-3), and each is
+        # held relative to its size (loss/dx_err_over_tol in the rows above)
+        "max_abs_err": max(r["max_abs_err"] for r in robust),
+        "max_err_over_tol": max(max(r["loss_err_over_tol"], r["dx_err_over_tol"])
+                                for r in robust),
+        "ms": robust_row["ms"],
+        "plain_ms": robust_row["plain_ms"],
+        "bound_ms": robust_row["bound_ms"],
+        "bound_by": robust_row["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes rho and its dx
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

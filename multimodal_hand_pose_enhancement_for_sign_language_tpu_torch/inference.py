@@ -74,7 +74,8 @@ def main(args):
 
     model = registry.build_generator(
         args.model, test_X.shape[-1], feature_out_dim,
-        require_text=args.require_text, device=args.device,
+        require_text=args.require_text, default_size=args.default_size,
+        device=args.device,
     )
     model.load_state_dict(load_generator_state(args.checkpoint), strict=True)
     output, error = infer_lib.run_inference(
@@ -112,6 +113,7 @@ def build_parser():
     p.add_argument("--batch_size", type=int, default=128, help="inference batch size")
     p.add_argument("--exp_name", type=str, default="experiment", help="experiment name")
     p.add_argument("--model", type=str, default="v1", help="model architecture (v1 is ported)")
+    p.add_argument("--default_size", type=int, default=256, help="generator embed width the checkpoint was trained with")
     p.add_argument("--num_samples", type=int, default=3000, help="number of sequences to predict")
     p.add_argument("--matmul_precision", type=str, default="float32", help="'float32' (TF32 off) or 'tensorfloat32'")
     p.add_argument("--device", type=str, default="cuda", help="'cuda' or 'cpu'")

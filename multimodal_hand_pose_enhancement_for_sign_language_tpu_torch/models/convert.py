@@ -1,4 +1,4 @@
-"""Weights bridge: the JAX package's generator variables -> this port's state_dict.
+"""Weights bridge: the JAX package's model variables -> this port's state_dicts.
 
 The JAX generators keep flax trees ``{'params': ..., 'batch_stats': ...}``
 of numpy arrays; this maps them onto the reference's ``nn.Sequential`` key
@@ -85,3 +85,23 @@ def generator_state_dict(variables) -> dict:
     sd.update(_bn("decoder.7", dec_p["BatchNorm_0"], dec_s["BatchNorm_0"]))
     sd.update(_conv("decoder.9", dec_p["Conv1d_0"]))
     return sd
+
+
+def discriminator_state_dict(variables) -> dict:
+    """The discriminator's ``{'params', 'batch_stats'}`` tree -> state_dict
+    in the reference's ``convs.<i>`` layout (convs 1, 5, ..., 25 and 29), the
+    mapping of the JAX package's ``torch_port.discriminator_to_torch_state``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    for i in range(7):
+        conv_idx = 1 + 4 * i
+        sd.update(_conv_block("convs", params[f"block{i}"], stats[f"block{i}"],
+                              conv_idx, conv_idx + 2))
+    sd.update(_conv("convs.29", params["final"]))
+    return sd
+
+
+def robust_state_dict(robust_params) -> dict:
+    """The adaptive loss's latent tree -> ``AdaptiveLossFunction`` state_dict."""
+    return {k: _t(robust_params[k]) for k in ("latent_alpha", "latent_scale")
+            if k in robust_params}

@@ -1,7 +1,9 @@
-"""The "v1" generator, ``regressor_fcn_bn_32``, and its decoder.
+"""The "v1" generator, ``regressor_fcn_bn_32``, its decoder, and the motion
+discriminator.
 
 PyTorch counterpart of the JAX package's ``models/generators.py``
-(:46-106), which re-implements the reference modelZoo.py:169-328.  Child
+(:46-106 and :273-287), which re-implements the reference
+modelZoo.py:169-328 and :767-813.  Child
 names and ``nn.Sequential`` indices are the reference's, so reference
 ``.pth`` checkpoints and the JAX package's converted weights load with
 ``strict=True``.  Input and output are (B, D, T).
@@ -14,6 +16,7 @@ from torch import nn
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.layers import (
     ConvBlock,
+    Dropout,
     FeatEmbedBlock,
     max_pool_time,
     upsample_repeat,
@@ -31,12 +34,12 @@ class Decoder(nn.Sequential):
     def __init__(self, in_ch, out_dim, dropout=0.5):
         super().__init__(
             *ConvBlock(in_ch, in_ch, 3, 1, 1, dropout=dropout),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             nn.ConvTranspose1d(in_ch, out_dim, 7, stride=2, padding=3,
                                output_padding=1),
             nn.ReLU(),
             nn.BatchNorm1d(out_dim, momentum=0.1, eps=1e-5),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             nn.Conv1d(out_dim, out_dim, 7, 1, 3),
         )
 
@@ -84,3 +87,25 @@ class regressor_fcn_bn_32(nn.Module):
         fifth = sixth + fifth
         fifth = self.skip5(fifth)
         return self.decoder(fifth)
+
+
+class regressor_fcn_bn_discriminator(nn.Module):
+    """Motion discriminator: 7 stride-2 conv blocks D->64->64->32->32->16->
+    16->8 then Conv1d(8->1, k3) (modelZoo.py:767-813), one ``nn.Sequential``
+    named ``convs`` with the reference's indices (convs 1, 5, ..., 25 and
+    29; BatchNorms 3, 7, ..., 27).  Takes motion deltas (B, D, T'); emits a
+    per-position real/fake score map (B, 1, T'')."""
+
+    def __init__(self, feature_in_dim, dropout_rate=0.5):
+        super().__init__()
+        self.feature_in_dim = feature_in_dim
+        layers = []
+        in_ch = feature_in_dim
+        for ch in (64, 64, 32, 32, 16, 16, 8):
+            layers += list(ConvBlock(in_ch, ch, 5, 2, 2, dropout=dropout_rate))
+            in_ch = ch
+        layers += [Dropout(dropout_rate), nn.Conv1d(in_ch, 1, 3, 1, 1)]
+        self.convs = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.convs(x)

@@ -7,6 +7,10 @@ with exactly the reference's child indices, so a reference state_dict
 (``encoder.1.weight``, ``decoder.5.weight``, ...) loads with
 ``strict=True``.  BatchNorm is torch's own: eval uses the running
 statistics; momentum 0.1 (0.01 in the feature branches); eps 1e-5.
+
+Dropout is ``Dropout`` below, ``nn.Dropout`` at the same indices whose
+mask comes from a ``torch.Generator`` that the trainer owns, so a training
+run is a function of its seed and never touches the global generator.
 """
 
 from __future__ import annotations
@@ -17,6 +21,30 @@ import torch
 from torch import nn
 
 
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` whose mask is drawn from ``self.generator`` (set with
+    ``set_dropout_generator``; None means the global generator).  The
+    generator must live on the device of the input.  Eval mode and p = 0
+    pass the input through."""
+
+    generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device,
+                          dtype=x.dtype) < keep
+        return x * mask / keep if keep > 0 else torch.zeros_like(x)
+
+
+def set_dropout_generator(module: nn.Module, generator) -> None:
+    """Make every ``Dropout`` under ``module`` draw from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class ConvBlock(nn.Sequential):
     """Dropout -> Conv1d -> LeakyReLU(0.2) -> BatchNorm1d [-> MaxPool1d(2)]
     (indices 0..3[, 4])."""
@@ -24,7 +52,7 @@ class ConvBlock(nn.Sequential):
     def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=1,
                  pool=False, dropout=0.5):
         layers = [
-            nn.Dropout(dropout),
+            Dropout(dropout),
             nn.Conv1d(in_ch, out_ch, kernel_size, stride, padding),
             nn.LeakyReLU(0.2),
             nn.BatchNorm1d(out_ch, momentum=0.1, eps=1e-5),
@@ -41,7 +69,7 @@ class FeatEmbedBlock(nn.Sequential):
 
     def __init__(self, in_f, out_f, dropout=0.5):
         super().__init__(
-            nn.Dropout(dropout),
+            Dropout(dropout),
             nn.Linear(in_f, out_f),
             nn.LeakyReLU(0.2),
             nn.BatchNorm1d(out_f, momentum=0.01, eps=1e-5),

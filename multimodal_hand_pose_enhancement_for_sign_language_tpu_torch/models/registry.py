@@ -1,7 +1,8 @@
-"""Generator registry: short model name -> module, built with seeded weights.
+"""Model registry: short model name -> module, built with seeded weights.
 
-Counterpart of the JAX package's ``models/registry.py``.  Only "v1"
-(``regressor_fcn_bn_32``) is ported so far; the other names raise.
+Counterpart of the JAX package's ``models/registry.py``.  Of the
+generators only "v1" (``regressor_fcn_bn_32``) is ported so far; the other
+names raise.  The discriminator is the one the reference has.
 """
 
 from __future__ import annotations
@@ -43,12 +44,27 @@ def build_generator(model: str, feature_in_dim: int, feature_out_dim: int,
         raise NotImplementedError(
             f"generator {model!r} is not ported yet; ported: {sorted(_CLASSES)}"
         )
-    dev = resolve_device(device)
-    with torch.device("meta"):
-        net = _CLASSES[name](
+    return _materialize(
+        lambda: _CLASSES[name](
             feature_in_dim, feature_out_dim, require_text=require_text,
             default_size=default_size, dropout_rate=dropout_rate,
-        )
+        ), seed, device)
+
+
+def build_discriminator(feature_in_dim: int, dropout_rate: float = 0.5,
+                        seed: int = 0, device="cuda"):
+    """Build the motion discriminator on ``device`` in eval mode, seeded as
+    ``build_generator`` seeds a generator."""
+    return _materialize(
+        lambda: generators.regressor_fcn_bn_discriminator(
+            feature_in_dim, dropout_rate=dropout_rate),
+        seed, device)
+
+
+def _materialize(make, seed, device):
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        net = make()
     net = net.to_empty(device=dev)
     init_torch_default_(net, torch.Generator().manual_seed(seed))
     return net.eval()

@@ -1,7 +1,14 @@
-"""Checkpoint loading: reference ``.pth`` files and the JAX package's ``.pkl``.
+"""Checkpoints: this port's and the reference's ``.pth`` files, and reading
+the JAX package's ``.pkl``.
 
-A reference checkpoint is ``{'epoch', 'state_dict', 'g_optimizer'}``
-(train_gan.py:353-370), already in this port's key layout.  A JAX-package
+The trainer keeps the reference's checkpoint semantics
+(train_gan.py:353-370): best-val generator -> ``{exp}_checkpoint.pth``,
+discriminator -> ``discriminator_{exp}.pth``, final copy ->
+``lastCheckpoint_{exp}.pth``.  A generator checkpoint is the reference's
+``{'epoch', 'state_dict', 'g_optimizer'}``, already in this port's key
+layout, plus what a resume needs (``GanTrainer.checkpoint_payload``); all
+of it is tensors and plain containers, so it loads with
+``weights_only=True``.  A JAX-package
 checkpoint is a pickle of ``{'epoch', 'state': {...}, 'config'}`` whose
 ``state`` also holds the optax optimizer state (optax NamedTuples) and the
 PRNG key (a ``train.checkpoint._KeyData``).  A plain ``pickle.load`` would
@@ -16,6 +23,7 @@ from __future__ import annotations
 import builtins
 import collections
 import copyreg
+import os
 import pickle
 
 import numpy as np
@@ -84,12 +92,22 @@ def load_jax_pickle(path: str) -> dict:
         return _NumpyUnpickler(f).load()
 
 
+def save_checkpoint(path: str, payload: dict) -> None:
+    """Write ``payload`` (tensors and plain containers) as a ``.pth``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(payload, path)
+
+
+def load_checkpoint(path: str, map_location="cpu") -> dict:
+    """Read a ``.pth`` written by ``save_checkpoint`` or by the reference."""
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
 def load_generator_state(path: str) -> dict:
     """Generator state_dict (reference key layout, CPU tensors) from a
     reference ``.pth`` or a JAX-package ``.pkl`` checkpoint."""
     if path.endswith(".pth"):
-        loaded = torch.load(path, map_location="cpu", weights_only=True)
-        return dict(loaded["state_dict"])
+        return dict(load_checkpoint(path)["state_dict"])
     loaded = load_jax_pickle(path)
     if "state" not in loaded:
         raise KeyError(f"{path}: no 'state' entry; not a generator checkpoint")

@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from ``csrc/``, holds each against
-its plain PyTorch version on the card (``filter_sgd`` at the production
+Builds every CUDA kernel of the port from ``csrc/`` (one nvcc per source,
+started together; fails on a ``ptxas`` spill), holds each against its
+plain PyTorch version on the card (``filter_sgd`` at the production
 shapes and on every batch the lifting path below launches, with that
-batch's own inputs; ``robust_loss`` at the trainer's shapes with alpha
-exactly 0, exactly 2, spread over (1, 4) and at 2 +- 1 ulp), then drives
-two paths through the port's entry points.
+batch's own inputs, masked tails equal to x0 exactly; ``robust_loss`` at
+the trainer's shapes with alpha exactly 0, exactly 2, spread over (1, 4)
+and at 2 +- 1 ulp), then drives two paths through the port's entry points.
 
 Serving: synthetic 2D keypoint clips (lengths 64-1920, from a seed) ->
 ``lift_clips`` (900 cycles, the ``filter_sgd`` kernel) -> xyz -> aa -> r6d
@@ -27,17 +28,20 @@ the kernel's launch count, which parameters each epoch moved, the latents
 bit for bit, one G and one D step on the card against the same step on the
 CPU, and the checkpoint's strict reload.
 
-Prints one line per phase, then a JSON line describing each kernel, the
-card's name and power limit (``nvidia-smi``), and as the last line
-``{"ok": true, "device": {...}}``.  Exits nonzero, with no result line,
-on a machine without CUDA or when any phase fails.  Imports nothing of
-JAX.
+Prints one line per phase, then a JSON line describing each kernel (with
+its launch plan and, for the filter, its bound over the live elements and
+its FP32 issue floor from the instructions counted in the built
+library's SASS), the card's name and power limit (``nvidia-smi``), and as
+the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
+result line, on a machine without CUDA or when any phase fails.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -92,6 +96,8 @@ N_CPU_WINDOWS = 256
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 on the CUDA cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# FP32 instruction issue: 132 SMs x 128 lanes x 1.98 GHz boost
+PEAK_FP32_INSTR = 132 * 128 * 1.98e9
 
 
 def log(msg):
@@ -130,10 +136,22 @@ def filter_inputs(rng, B, T, device):
     return [torch.from_numpy(a).to(device) for a in (*planes, w, mask)]
 
 
-def hold_filter(ins, rows, label, reps=10):
+def filter_fp32_per_element_cycle():
+    """FP32 instructions per element and cycle of the filter's update, as
+    built: those of the one-warp kernel's cycle loop (three SHFL.DOWN a
+    cycle) in ``cuobjdump -sass`` of the library, over the K steps a lane
+    holds.  The layout of rows over several warps runs the same update."""
+    per_cycle = build.loop_fp32_per_cycle(
+        build.sass("filter_sgd"), "filter_sgd_kernelILb0E", "SHFL.DOWN", 3)
+    return per_cycle / fs.launch_plan(1, 1)[0]
+
+
+def hold_filter(ins, rows, label, fp32, reps=10):
     """filter_sgd's wrapper against its plain version on the card, on the
     first ``rows`` rows of ``ins`` (the rest are the all-masked padding of
-    a pow2 batch, NaN in both); returns the measured row."""
+    a pow2 batch, which the plain version makes NaN); the masked tails of
+    those rows must come out as x0 exactly.  ``fp32``: FP32 instructions
+    per element and cycle, for the issue floor.  Returns the measured row."""
     B, T = ins[-1].shape
     got = fs.filter_sgd(*ins, LR, N_CYCLES)
     t0 = torch.cuda.Event(enable_timing=True)
@@ -143,30 +161,39 @@ def hold_filter(ins, rows, label, reps=10):
     t1.record()
     torch.cuda.synchronize()
     err = max(float((g[:rows] - w[:rows]).abs().max()) for g, w in zip(got, want))
+    masked = (ins[-1][:rows] == 0)[:, :, None].expand(-1, -1, 50)
+    tails_exact = all(torch.equal(g[:rows][masked], x[:rows][masked])
+                      for g, x in zip(got, ins[:3]))
     ms = cuda_ms(lambda: fs.filter_sgd(*ins, LR, N_CYCLES), reps=reps)
     elems = B * T * 50
-    flop_s = fs.FLOPS_PER_ELEMENT_CYCLE * elems * N_CYCLES / PEAK_FP32_FLOPS
+    live = int(ins[-1].sum()) * 50  # the mask sum x 50 joints
     byte_s = (fs.BYTES_PER_ELEMENT * elems + 4 * B * T) / PEAK_BYTES
+    flop_s = fs.FLOPS_PER_ELEMENT_CYCLE * elems * N_CYCLES / PEAK_FP32_FLOPS
+    live_flop_s = fs.FLOPS_PER_ELEMENT_CYCLE * live * N_CYCLES / PEAK_FP32_FLOPS
+    instr = fp32 * N_CYCLES / PEAK_FP32_INSTR
     row = {
         "inputs": label, "B": B, "T": T, "n_cycles": N_CYCLES,
-        "steps_per_thread": fs.steps_per_thread(B, T), "max_abs_err": err,
+        "launch_plan": dict(zip("KLWR", fs.launch_plan(B, T))),
+        "max_abs_err": err, "masked_tails_exact": tails_exact,
         "ms": ms, "plain_ms": t0.elapsed_time(t1), "bound_ms": 1e3 * max(flop_s, byte_s),
         "bound_by": "operations" if flop_s >= byte_s else "bytes",
+        "live_elements": live, "live_bound_ms": 1e3 * max(live_flop_s, byte_s),
+        "issue_floor_ms": 1e3 * instr * elems, "live_issue_floor_ms": 1e3 * instr * live,
     }
     log("kernel filter_sgd " + json.dumps(row))
-    if not err <= FILTER_ATOL:
+    if not (err <= FILTER_ATOL and tails_exact):
         raise AssertionError(f"filter_sgd disagrees with its plain version: {row}")
     return row
 
 
-def kernel_phase(clips):
+def kernel_phase(clips, fp32):
     """CUDA filter_sgd against its plain version at 900 cycles: at the
     production shapes B=128, T in {64, 256, 1920} (random planes, masked
     tails), then on every batch the lifting path launches for ``clips``,
     with that batch's own inputs (the engine's plan, packing and
     initialization).  Returns (production rows, path rows)."""
     rng = np.random.RandomState(SEED)
-    prod = [hold_filter(filter_inputs(rng, 128, T, "cuda"), 128, "random")
+    prod = [hold_filter(filter_inputs(rng, 128, T, "cuda"), 128, "random", fp32)
             for T in (64, 256, 1920)]
     path = []
     for tb, chunk in engine._plan(clips):
@@ -174,12 +201,14 @@ def kernel_phase(clips):
                               for a in engine._pack(chunk, tb))
         x0, y0, z0, Xx, Xy, Xw = engine._init_core(kps, masks, noises)
         path.append(hold_filter((x0, y0, z0, Xx, Xy, Xw, masks), len(chunk),
-                                "path batch", reps=3))
-    used = sorted({r["steps_per_thread"] for r in path})
-    log(f"filter_sgd on the path's {len(path)} batches: steps_per_thread {used}, "
-        f"max_abs_err {max(r['max_abs_err'] for r in path):.3e}, kernel "
+                                "path batch", fp32, reps=3))
+    plans = sorted({tuple(r["launch_plan"].values()) for r in path})
+    log(f"filter_sgd on the path's {len(path)} batches: launch plans (K, L, W, R) "
+        f"{plans}, max_abs_err {max(r['max_abs_err'] for r in path):.3e}, kernel "
         f"{sum(r['ms'] for r in path):.3f} ms summed, bound "
-        f"{sum(r['bound_ms'] for r in path):.3f} ms, plain "
+        f"{sum(r['bound_ms'] for r in path):.3f} ms, live bound "
+        f"{sum(r['live_bound_ms'] for r in path):.3f} ms, live issue floor "
+        f"{sum(r['live_issue_floor_ms'] for r in path):.3f} ms, plain "
         f"{sum(r['plain_ms'] for r in path):.3f} ms")
     return prod, path
 
@@ -260,6 +289,7 @@ def hold_robust(N, D, rng, reps=20):
         "loss_err_over_tol": x_loss, "dx_err_over_tol": x_dx,
         "ulp_columns": {"loss_abs_err": u_loss, "loss_err_over_tol": ux_loss,
                         "dx_abs_err": u_dx, "dx_err_over_tol": ux_dx},
+        "launch_plan": {"path": rl.launch_path(x), "grid": rl.launch_grid(N, D)},
         "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(byte_s, flop_s),
         "bound_by": "bytes" if byte_s >= flop_s else "operations",
@@ -289,8 +319,30 @@ def robust_kernel_phase():
 
 def ptxas_line(name):
     return " | ".join(
-        ln.strip() for ln in build.build_log.get(name, {}).get("ptxas", "").splitlines()
-        if "registers" in ln)
+        ln.strip() for ln in build.build_log[name]["ptxas"].splitlines()
+        if "registers" in ln or "spill" in ln)
+
+
+def build_kernels(names):
+    """Build every kernel (one nvcc per source, started together) and fail
+    if ptxas reports a spill in any of them, or reports nothing (a library
+    built earlier is read back with the report of its build)."""
+    t0 = time.perf_counter()
+    build.build(*names)
+
+    def took(n):
+        s = build.build_log[n]["seconds"]
+        return "built earlier" if s is None else f"{s:.2f} s"
+
+    log(f"build: {time.perf_counter() - t0:.2f} s for {len(names)} sources; "
+        + "; ".join(f"{n} {took(n)}: {ptxas_line(n)}" for n in names))
+    for n in names:
+        report = build.build_log[n]["ptxas"]
+        if "registers" not in report:
+            raise AssertionError(f"no ptxas report for {n}.cu: {report!r}")
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", report)
+        if any(int(v) for v in spills):
+            raise AssertionError(f"ptxas reports spills in {n}.cu: {ptxas_line(n)}")
 
 
 def synthetic_clips(rng, n):
@@ -732,16 +784,14 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
 
-    t0 = time.perf_counter()
-    for name in ("filter_sgd", "robust_loss"):
-        build.load(name)
-    log(f"build: {time.perf_counter() - t0:.2f} s for both; "
-        + "; ".join(f"{n} {build.build_log[n]['seconds']:.2f} s: {ptxas_line(n)}"
-                    for n in ("filter_sgd", "robust_loss") if n in build.build_log))
+    build_kernels(("filter_sgd", "robust_loss"))
+    fp32 = filter_fp32_per_element_cycle()
+    log(f"filter_sgd update: {fp32} FP32 instructions per element and cycle "
+        "(SASS of the built library)")
 
     clips = synthetic_clips(np.random.RandomState(SEED), N_CLIPS)
     robust = robust_kernel_phase()
-    prod, path = kernel_phase(clips)
+    prod, path = kernel_phase(clips, fp32)
     launches, r6d = path_phase(clips)
     robust_launches = train_phase(r6d)
 
@@ -759,6 +809,12 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the filter
+        "launch_plan": main_row["launch_plan"],
+        # bound_ms over the elements this run's mask keeps
+        "live_bound_ms": main_row["live_bound_ms"],
+        "fp32_instructions_per_element_cycle": fp32,  # counted in the SASS
+        "issue_floor_ms": main_row["issue_floor_ms"],
+        "path_ms": sum(r["ms"] for r in path),  # the main path's batches, summed
     }, {
         "name": "robust_loss",
         "route": "cuda",
@@ -776,6 +832,7 @@ def main() -> int:
         "bound_ms": robust_row["bound_ms"],
         "bound_by": robust_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes rho and its dx
+        "launch_plan": robust_row["launch_plan"],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

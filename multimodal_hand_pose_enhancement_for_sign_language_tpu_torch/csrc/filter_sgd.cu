@@ -12,72 +12,179 @@
 // (t_real J), pm = 2 lr mask[t] mask[t+1] / ((t_real - 1) J).  z has no data
 // term (a = 1, b = 0).  The coefficients are folded here from the raw inputs
 // (x0, y0, z0, tarx, tary, w, mask), so each input is read once and each
-// output written once.
+// output written once.  The time edges are explicit zeros rather than the
+// TPU kernel's wrap-around roll.
 //
-// What bounds it on an H100: FP32 arithmetic on the CUDA cores.  Per element
-// and cycle it does 16 flops (6 for x, 6 for y, 4 for z, an FMA counted as 2);
-// device-memory traffic is 36 B per element plus the mask, once, against
-// 16 * n_cycles flops (14,400 at the production 900 cycles).  So the design
-// keeps the whole state on chip for all cycles:
+// What bounds it on an H100: FP32 instruction issue on the CUDA cores.  Per
+// element and cycle the update is 16 flops, which nvcc compiles to 11 FP32
+// instructions (x and y: one FADD and three FFMA each; z: one FADD and two
+// FFMA), 91 for a lane's 8 steps with its two end steps (chip_smoke.py
+// counts them in the built library's SASS); device-memory traffic is 36 B
+// per element plus the mask, once, against 900 cycles of that.  So the
+// whole state stays in registers for all cycles, and the design spends as
+// little as it can on anything but those instructions:
 //
-//   * one row is split over P threads, each holding K consecutive time steps
-//     of x, y, z and their folded coefficients in registers;
-//   * the only traffic per cycle is each thread's two edge values per
-//     coordinate, swapped through a double-buffered shared-memory slot with
-//     ONE __syncthreads: every sd is computed from the old state (the right
-//     neighbour s[t+1] and the left neighbour s[t-1] are both read from the
-//     buffer written before the barrier), and the parity flip keeps cycle c+1
-//     from overwriting what a slow thread still reads in cycle c;
-//   * rows are independent, so a block packs R = 256 / P rows and there is no
-//     inter-block communication; the TPU kernel's 128-lane time padding,
-//     chunk rescale, batch segmentation and VMEM budget have no counterpart.
+//   * each lane holds K = 8 consecutive steps of x, y, z and their
+//     coefficients a, bx, by, pm (81-93 registers, no spills; K = 16 took
+//     140-160 registers, fewer warps, and measured slower);
+//   * a row of T <= 32 K = 256 steps lives in L lanes of ONE warp (L the
+//     least power of two with L K >= T); a warp packs 32 / L rows.  The edge
+//     exchange of a cycle is six segmented shuffles (width L): each lane's
+//     first values down, its last values up.  No shared memory, no barrier;
+//   * a longer row (up to 4096 steps) spans W warps, one row a block.  Lanes
+//     1..30 of a warp own 30 K steps; lanes 0 and 31 are halos that hold the
+//     neighbour warps' edge lanes and run the same update.  A halo's outer
+//     step goes wrong each cycle (its outer neighbour is in another warp),
+//     one step further each cycle, so the halos are refreshed every K
+//     cycles, before the error reaches the owned lanes: lanes 1 and 30 write
+//     their 24 values to a double-buffered shared-memory slot, the row's
+//     live warps meet at a named barrier (bar.sync 1, 32 * warps; never a
+//     block-wide __syncthreads), and lanes 0 and 31 read their neighbours'.
+//     The exchange costs one barrier per K cycles, and the halos 2 of 32
+//     lanes;
+//   * within a cycle the interior steps 1..K-2, which need no neighbour, run
+//     between the shuffles and the two end steps that use them;
+//   * dead steps are skipped a warp at a time.  A row's mask sum (t_real)
+//     and live end (one past its last unmasked step) come from a segmented
+//     warp reduction over the owned lanes, plus one exchange through shared
+//     memory for a row that spans warps.  Masked steps get a = 1, b = 0,
+//     pm = 0: exact fixed points of the loop.  A warp whose owned steps all
+//     lie at or past the live end of every row it holds (the pow2 padding
+//     rows of a batch, the dead tail of a long row) writes x0, y0, z0
+//     through and runs no cycle; the live warps of a long row are a prefix,
+//     and its barrier counts only them.  So a padding row comes out as x0,
+//     where the plain version gives NaN (t_real = 0), and a masked tail as
+//     x0, exactly.
 //
-// The time edges are explicit zeros rather than the TPU kernel's wrap-around
-// roll.  nvcc contracts a*s+b into an FMA; the plain PyTorch version keeps the
-// unfolded gradient form, so the two agree to rounding (2e-4 at 900 cycles is
-// the stated tolerance).
+// The update is the gradient form above, as the plain PyTorch version
+// writes it; nvcc contracts the products into FMAs, so the two agree to
+// rounding (2e-4 at 900 cycles is the stated tolerance).  The 3-tap form
+// s' = c s + pm[t] s[t+1] + pm[t-1] s[t-1] + b (9 instructions) was tried
+// and dropped: 2.41e-4 from the plain version at B = 128, T = 4096.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kJoints = 50;
-constexpr int kRowThreads = 256;  // threads a block aims for
-constexpr int kMaxThreads = 512;  // one row of P <= 512 chunks
+constexpr int K = 8;                // time steps a lane holds
+constexpr int kOwned = 30;          // lanes a warp owns in a row of W > 1 warps
+constexpr int kMaxWarps = 18;       // ceil(4096 / (30 * 8)): T <= 4096
+constexpr int kMaxThreads = 32 * kMaxWarps;
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int K>
+// the barrier of a row of W warps (its block): named, so that only the
+// row's live warps wait on it
+__device__ __forceinline__ void row_barrier(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+// What the two end steps of a lane need from its interior sweep: the
+// differences d[0] and d[K-2].
+struct Edges {
+  float first, last;
+};
+
+// Steps 1..K-2 of one coordinate, in place, from the old state:
+//   s[k] = a s[k] + b - d[k] + d[k-1],  d[k] = (s[k] - s[k+1]) pm[k].
+// DATA is false for z (a = 1, b = 0).
+template <bool DATA>
+__device__ __forceinline__ Edges interior(float (&s)[K], const float (&a)[K],
+                                          const float (&b)[K],
+                                          const float (&pm)[K]) {
+  float dl = (s[0] - s[1]) * pm[0];
+  const float d0 = dl;
+#pragma unroll
+  for (int k = 1; k < K - 1; ++k) {
+    const float d = (s[k] - s[k + 1]) * pm[k];
+    s[k] = DATA ? a[k] * s[k] + b[k] - d + dl : s[k] - d + dl;
+    dl = d;
+  }
+  return {d0, dl};
+}
+
+// Steps 0 and K-1 of one coordinate, once the neighbours' values are in:
+// `left` is the old s[-1], `right` the old s[K].
+template <bool DATA>
+__device__ __forceinline__ void ends(float (&s)[K], const float (&a)[K],
+                                     const float (&b)[K], const float (&pm)[K],
+                                     float pm_left, float left, float right,
+                                     Edges e) {
+  constexpr int n = K - 1;
+  const float dl = (left - s[0]) * pm_left;
+  const float dr = (s[n] - right) * pm[n];
+  s[0] = DATA ? a[0] * s[0] + b[0] - e.first + dl : s[0] - e.first + dl;
+  s[n] = DATA ? a[n] * s[n] + b[n] - dr + e.last : s[n] - dr + e.last;
+}
+
+// MULTI: a row spans W > 1 warps, one row a block; lanes 1..30 of a warp own
+// its steps, lanes 0 and 31 are halos holding copies of the neighbour warps'
+// edge lanes.  Otherwise a row is L lanes of one warp, all owned, and a
+// block packs R rows.
+template <bool MULTI>
 __global__ void __launch_bounds__(kMaxThreads) filter_sgd_kernel(
     const float* __restrict__ x0, const float* __restrict__ y0,
     const float* __restrict__ z0, const float* __restrict__ tarx,
     const float* __restrict__ tary, const float* __restrict__ w,
     const float* __restrict__ mask, float* __restrict__ xo,
-    float* __restrict__ yo, float* __restrict__ zo, int B, int T, int P, int R,
-    float lr, int n_cycles) {
-  // edge[parity][c][thread]: c = 0..2 first x/y/z of the chunk, 3..5 last
-  __shared__ float edge[2][6][kMaxThreads];
-  __shared__ float t_real_s[kMaxThreads];
+    float* __restrict__ yo, float* __restrict__ zo, int B, int T, int L,
+    int W, int R, float lr, int n_cycles) {
+  // halo[parity][warp][side][coordinate][step]: side 0 is the warp's lane 1
+  // (its first owned steps), side 1 its lane 30 (its last)
+  __shared__ float halo[2][kMaxWarps][2][3][K];
+  __shared__ float part_sum[kMaxWarps];
+  __shared__ int part_end[kMaxWarps];
 
+  if (MULTI) L = 32;
   const int tid = threadIdx.x;
-  const int r = tid % R;  // row within the block
-  const int p = tid / R;  // chunk within the row
+  const int lane = tid & 31;
+  const int warp = tid >> 5;  // the warp within the row when MULTI
+  const int r = tid / (L * W);
   const long long row = (long long)blockIdx.x * R + r;
   const bool row_ok = row < (long long)B * kJoints;
   const int b = row_ok ? (int)(row / kJoints) : 0;
   const int j = (int)(row % kJoints);
-  const int t0 = p * K;  // P = ceil(T / K), so t0 < T
+  const bool owned = !MULTI || (lane >= 1 && lane <= kOwned);
+  const int t0 = MULTI ? (warp * kOwned + lane - 1) * K : (tid - r * L) * K;
   const float* m = mask + (long long)b * T;
 
-  // valid-frame count of the row's clip: 0/1 partial sums are exact in f32,
-  // so the atomic order cannot change the result
-  if (tid < R) t_real_s[tid] = 0.f;
-  __syncthreads();
-  float cnt = 0.f;
+  float mk[K + 1];
 #pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (t0 + k < T) cnt += m[t0 + k];
-  if (row_ok) atomicAdd(&t_real_s[r], cnt);
-  __syncthreads();
-  const float t_real = t_real_s[r];
+  for (int k = 0; k <= K; ++k) {
+    const int t = t0 + k;
+    mk[k] = (row_ok && t >= 0 && t < T) ? m[t] : 0.f;
+  }
+  const float m_left =
+      (row_ok && t0 > 0 && t0 - 1 < T) ? m[t0 - 1] : 0.f;
+
+  // the row's mask sum and live end, over the owned steps: 0/1 partial
+  // sums are exact in f32, so the reduction order cannot change them
+  float t_real = 0.f;
+  int t_end = 0;
+  if (owned) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      t_real += mk[k];
+      if (mk[k] != 0.f) t_end = t0 + k + 1;
+    }
+  }
+  for (int off = 1; off < L; off <<= 1) {
+    t_real += __shfl_xor_sync(kFull, t_real, off, L);
+    t_end = max(t_end, __shfl_xor_sync(kFull, t_end, off, L));
+  }
+  if (MULTI) {
+    if (lane == 0) {
+      part_sum[warp] = t_real;
+      part_end[warp] = t_end;
+    }
+    row_barrier(32 * W);
+    t_real = 0.f;
+    t_end = 0;
+    for (int v = 0; v < W; ++v) {
+      t_real += part_sum[v];
+      t_end = max(t_end, part_end[v]);
+    }
+  }
   const float c_data = 2.f * lr / (t_real * (float)kJoints);
   const float c_pair = 2.f * lr / ((t_real - 1.f) * (float)kJoints);
 
@@ -85,66 +192,94 @@ __global__ void __launch_bounds__(kMaxThreads) filter_sgd_kernel(
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int t = t0 + k;
-    if (row_ok && t < T) {
+    const float mt = mk[k];
+    sx[k] = sy[k] = sz[k] = 0.f;
+    a[k] = 1.f;
+    bx[k] = by[k] = pm[k] = 0.f;
+    if (row_ok && t >= 0 && t < T) {
       const long long idx = ((long long)b * T + t) * kJoints + j;
-      const float mt = m[t];
-      const float lw2 = c_data * w[idx] * mt;
       sx[k] = x0[idx];
       sy[k] = y0[idx];
       sz[k] = z0[idx];
-      a[k] = 1.f - lw2;
-      bx[k] = lw2 * tarx[idx];
-      by[k] = lw2 * tary[idx];
-      pm[k] = (t + 1 < T) ? mt * m[t + 1] * c_pair : 0.f;
-    } else {
-      sx[k] = sy[k] = sz[k] = 0.f;
-      a[k] = 1.f;
-      bx[k] = by[k] = pm[k] = 0.f;
+      if (mt != 0.f) {
+        const float lw2 = c_data * w[idx] * mt;
+        a[k] = 1.f - lw2;
+        bx[k] = lw2 * tarx[idx];
+        by[k] = lw2 * tary[idx];
+        if (mk[k + 1] != 0.f) pm[k] = mt * mk[k + 1] * c_pair;
+      }
     }
   }
   // pair (t0-1, t0) belongs to the left neighbour; its sd enters s[t0]
-  const float pm_left = (row_ok && p > 0) ? m[t0 - 1] * m[t0] * c_pair : 0.f;
+  const float pm_left =
+      (m_left != 0.f && mk[0] != 0.f) ? m_left * mk[0] * c_pair : 0.f;
 
-  for (int c = 0; c < n_cycles; ++c) {
-    const int par = c & 1;
-    edge[par][0][tid] = sx[0];
-    edge[par][1][tid] = sy[0];
-    edge[par][2][tid] = sz[0];
-    edge[par][3][tid] = sx[K - 1];
-    edge[par][4][tid] = sy[K - 1];
-    edge[par][5][tid] = sz[K - 1];
-    __syncthreads();
-    float dlx = 0.f, dly = 0.f, dlz = 0.f;
-    if (p > 0) {
-      dlx = (edge[par][3][tid - R] - sx[0]) * pm_left;
-      dly = (edge[par][4][tid - R] - sy[0]) * pm_left;
-      dlz = (edge[par][5][tid - R] - sz[0]) * pm_left;
-    }
-    float rx = 0.f, ry = 0.f, rz = 0.f;
-    if (p < P - 1) {
-      rx = edge[par][0][tid + R];
-      ry = edge[par][1][tid + R];
-      rz = edge[par][2][tid + R];
-    }
+  // live warps: a one-warp row starts at step 0, so its warp is live if
+  // any row in it has a live step; a row of W warps keeps the prefix of
+  // warps whose owned steps start before its live end
+  int n_live = 1;
+  bool live;
+  if (MULTI) {
+    n_live = (t_end + kOwned * K - 1) / (kOwned * K);
+    live = warp < n_live;
+  } else {
+    live = __any_sync(kFull, t_end > 0);
+  }
+
+  if (live) {
+    for (int c = 0; c < n_cycles; ++c) {
+      if (MULTI && c > 0 && c % K == 0) {
+        // refresh the halos: a halo lane's outermost step goes wrong one
+        // step a cycle (its outer neighbour is not in the warp), so after
+        // K cycles the wrong values reach, but have not yet been read by,
+        // the owned lane beside it.  The parity flip keeps the next refresh
+        // from overwriting what a slow warp still reads; a warp past the
+        // live prefix never changes (all its steps are fixed points), so
+        // its neighbour keeps the halo it has.
+        const int par = (c / K) & 1;
+        if (lane == 1 || lane == kOwned) {
+          float* dst = &halo[par][warp][lane == 1 ? 0 : 1][0][0];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      // s[k+1] is still the old value: the sweep goes up in k
-      const float nx = (k < K - 1) ? sx[k + 1] : rx;
-      const float ny = (k < K - 1) ? sy[k + 1] : ry;
-      const float nz = (k < K - 1) ? sz[k + 1] : rz;
-      const float dx = (sx[k] - nx) * pm[k];
-      const float dy = (sy[k] - ny) * pm[k];
-      const float dz = (sz[k] - nz) * pm[k];
-      sx[k] = a[k] * sx[k] + bx[k] - dx + dlx;
-      sy[k] = a[k] * sy[k] + by[k] - dy + dly;
-      sz[k] = sz[k] - dz + dlz;
-      dlx = dx;
-      dly = dy;
-      dlz = dz;
+          for (int k = 0; k < K; ++k) {
+            dst[k] = sx[k];
+            dst[K + k] = sy[k];
+            dst[2 * K + k] = sz[k];
+          }
+        }
+        row_barrier(32 * n_live);
+        const bool from_left = lane == 0 && warp > 0;
+        const bool from_right = lane == 31 && warp + 1 < n_live;
+        if (from_left || from_right) {
+          const float* src = from_left ? &halo[par][warp - 1][1][0][0]
+                                       : &halo[par][warp + 1][0][0][0];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            sx[k] = src[k];
+            sy[k] = src[K + k];
+            sz[k] = src[2 * K + k];
+          }
+        }
+      }
+      // the right neighbour's first step and the left neighbour's last (at
+      // a segment edge a lane gets its own value back; pm is 0 there, or
+      // the lane is a halo)
+      const float rx = __shfl_down_sync(kFull, sx[0], 1, L);
+      const float ry = __shfl_down_sync(kFull, sy[0], 1, L);
+      const float rz = __shfl_down_sync(kFull, sz[0], 1, L);
+      const float lx = __shfl_up_sync(kFull, sx[K - 1], 1, L);
+      const float ly = __shfl_up_sync(kFull, sy[K - 1], 1, L);
+      const float lz = __shfl_up_sync(kFull, sz[K - 1], 1, L);
+      // steps 1..K-2 need no neighbour: they hide the shuffles' latency
+      const Edges ex = interior<true>(sx, a, bx, pm);
+      const Edges ey = interior<true>(sy, a, by, pm);
+      const Edges ez = interior<false>(sz, a, bx, pm);
+      ends<true>(sx, a, bx, pm, pm_left, lx, rx, ex);
+      ends<true>(sy, a, by, pm, pm_left, ly, ry, ey);
+      ends<false>(sz, a, bx, pm, pm_left, lz, rz, ez);
     }
   }
 
-  if (!row_ok) return;
+  if (!row_ok || !owned) return;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int t = t0 + k;
@@ -157,49 +292,38 @@ __global__ void __launch_bounds__(kMaxThreads) filter_sgd_kernel(
   }
 }
 
-template <int K>
-cudaError_t launch(const float* x0, const float* y0, const float* z0,
-                   const float* tarx, const float* tary, const float* w,
-                   const float* mask, float* xo, float* yo, float* zo, int B,
-                   int T, float lr, int n_cycles, cudaStream_t stream) {
-  const int P = (T + K - 1) / K;
-  if (P > kMaxThreads) return cudaErrorInvalidValue;
-  const int R = P >= kRowThreads ? 1 : kRowThreads / P;
-  const long long rows = (long long)B * kJoints;
-  const long long blocks = (rows + R - 1) / R;
-  filter_sgd_kernel<K><<<(unsigned)blocks, R * P, 0, stream>>>(
-      x0, y0, z0, tarx, tary, w, mask, xo, yo, zo, B, T, P, R, lr, n_cycles);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // C entry point (bound with ctypes).  All tensors are contiguous float32 on
-// one device: seven (B, T, 50) planes and a (B, T) mask in, three (B, T, 50)
-// planes out.  `k` is the time steps per thread (1, 2, 4 or 8).  Returns the
-// cudaError_t of the launch (0 on success); the kernel runs on `stream` and is
-// not synchronised.
+// one device: six (B, T, 50) planes and a (B, T) mask in, three (B, T, 50)
+// planes out.  (k, l, wr, r) is the host's launch_plan: steps per lane (8),
+// lanes per row in a warp, warps per row, rows per block.  Returns the
+// cudaError_t of the launch (0 on success, cudaErrorInvalidValue for a plan
+// the kernel does not take); the kernel runs on `stream` and is not
+// synchronised.
 extern "C" int mhpe_filter_sgd(const float* x0, const float* y0,
                                const float* z0, const float* tarx,
                                const float* tary, const float* w,
                                const float* mask, float* xo, float* yo,
                                float* zo, int B, int T, float lr, int n_cycles,
-                               int k, void* stream) {
+                               int k, int l, int wr, int r, void* stream) {
+  const int threads = r * l * wr;
+  const bool pow2 = l >= 1 && l <= 32 && (l & (l - 1)) == 0;
+  const bool one_warp = wr == 1 && pow2 && l * K >= T && threads % 32 == 0;
+  const bool multi = wr > 1 && wr <= kMaxWarps && l == 32 && r == 1 &&
+                     kOwned * K * wr >= T;
+  if (k != K || r < 1 || T < 1 || threads > kMaxThreads ||
+      !(one_warp || multi))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = ((long long)B * kJoints + r - 1) / r;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1:
-      return launch<1>(x0, y0, z0, tarx, tary, w, mask, xo, yo, zo, B, T, lr,
-                       n_cycles, s);
-    case 2:
-      return launch<2>(x0, y0, z0, tarx, tary, w, mask, xo, yo, zo, B, T, lr,
-                       n_cycles, s);
-    case 4:
-      return launch<4>(x0, y0, z0, tarx, tary, w, mask, xo, yo, zo, B, T, lr,
-                       n_cycles, s);
-    case 8:
-      return launch<8>(x0, y0, z0, tarx, tary, w, mask, xo, yo, zo, B, T, lr,
-                       n_cycles, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (multi)
+    filter_sgd_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(
+        x0, y0, z0, tarx, tary, w, mask, xo, yo, zo, B, T, l, wr, r, lr,
+        n_cycles);
+  else
+    filter_sgd_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(
+        x0, y0, z0, tarx, tary, w, mask, xo, yo, zo, B, T, l, wr, r, lr,
+        n_cycles);
+  return (int)cudaGetLastError();
 }

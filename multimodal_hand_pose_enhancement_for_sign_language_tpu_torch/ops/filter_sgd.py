@@ -11,11 +11,16 @@ Semantics are ``lifting/filtering.filter_xyz`` batched over clips.
   ``ops/build.py``) or raises.  ``filter_sgd.launches`` counts launches.
 * ``filter_sgd_plain``: the ``filter_xyz`` loop in PyTorch, batched.
 
-What bounds the kernel on an H100 is FP32 arithmetic on the CUDA cores:
-16 flops per element per cycle (``FLOPS_PER_ELEMENT_CYCLE``) against 36 B
-per element of device-memory traffic for the whole call, so the kernel
-keeps every row's state in registers for all cycles and exchanges only
-chunk edges through shared memory (see the note in the CUDA source).
+What bounds the kernel on an H100 is FP32 instruction issue on the CUDA
+cores: 16 flops (``FLOPS_PER_ELEMENT_CYCLE``) per element per cycle, which
+nvcc compiles to about 11 FP32 instructions (``build.loop_fp32_per_cycle``
+counts them in the built library), against 36 B per element of device-memory
+traffic for the whole call.  So the kernel keeps
+every row's state in registers for all cycles, exchanges chunk edges by
+warp shuffles (shared memory only every 8 cycles, between the warps of a
+row longer than 256 steps) and runs no cycle on a warp that holds only
+masked steps; ``launch_plan`` picks the layout (see the note in the CUDA
+source).
 """
 
 from __future__ import annotations
@@ -32,7 +37,10 @@ J = 50
 FLOPS_PER_ELEMENT_CYCLE = 16
 # each of the six (B, T, 50) inputs read once, three outputs written once
 BYTES_PER_ELEMENT = 36
-_MAX_T = 8 * 512  # K = 8 steps per thread, at most 512 threads per row
+_MAX_T = 4096
+_K = 8  # steps a lane holds: 81-93 registers, no spills (K = 16 took 140-160)
+_OWNED_LANES = 30  # lanes a warp owns in a row of several warps
+_BLOCK_WARPS = 4  # warps in a block of one-warp rows
 
 
 def filter_sgd_plain(x0, y0, z0, tarx, tary, w, mask, learning_rate: float,
@@ -61,16 +69,20 @@ def filter_sgd_plain(x0, y0, z0, tarx, tary, w, mask, learning_rate: float,
     return x, y, z
 
 
-def steps_per_thread(B: int, T: int) -> int:
-    """Time steps each CUDA thread holds: the most (up to 8, which keeps the
-    per-cycle edge exchange small against the arithmetic) that still gives
-    the card two full waves of threads (132 SMs x 2048), with at most 512
-    threads on one row."""
-    allowed = [k for k in (8, 4, 2, 1) if -(-T // k) <= 512]
-    for k in allowed:
-        if B * J * -(-T // k) >= 2 * 132 * 2048:
-            return k
-    return allowed[-1]
+def launch_plan(B: int, T: int) -> tuple:
+    """(K, L, W, R) of the CUDA kernel for a (B, T) batch: K = 8 steps per
+    lane, L lanes per row in a warp (a power of two, at most 32), W warps
+    per row, R rows per block.  A row of T <= 32 K steps lives in L lanes of
+    one warp (a warp packs 32 / L rows, a block 4 warps).  A longer row
+    spans W warps, one row a block: lanes 1..30 of each warp own 30 K
+    steps, lanes 0 and 31 hold halo copies of the neighbour warps' edges."""
+    if T < 1 or T > _MAX_T:
+        raise ValueError(f"filter_sgd: T={T} is outside the kernel's 1..{_MAX_T}")
+    lanes = -(-T // _K)
+    if lanes <= 32:
+        L = 1 << (lanes - 1).bit_length()
+        return _K, L, 1, 32 * _BLOCK_WARPS // L
+    return _K, 32, -(-T // (_OWNED_LANES * _K)), 1
 
 
 def _check(tensors, names, B, T):
@@ -103,22 +115,12 @@ def filter_sgd(x0, y0, z0, tarx, tary, w, mask, learning_rate: float,
     outs = tuple(torch.empty_like(ins[0]) for _ in range(3))
     if B == 0 or T == 0:
         return outs
-    lib = build.load("filter_sgd")
-    fn = lib.mhpe_filter_sgd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [
+    fn = build.bind("filter_sgd", "mhpe_filter_sgd", [ctypes.c_void_p] * 10 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(ins[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            *(t.data_ptr() for t in ins + outs),
-            B, T, float(learning_rate), int(n_cycles), steps_per_thread(B, T),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"filter_sgd kernel launch failed: cudaError {rc}")
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ])
+    build.launch(fn, ins[0].device, *(t.data_ptr() for t in ins + outs),
+                 B, T, float(learning_rate), int(n_cycles), *launch_plan(B, T))
     filter_sgd.launches += 1
     return outs
 

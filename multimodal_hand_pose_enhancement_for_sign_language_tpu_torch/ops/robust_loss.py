@@ -14,6 +14,9 @@ scalars; the result is the elementwise loss rho(x, alpha, scale), (N, D).
   VJP it sends the gradients of alpha and scale through the plain version,
   and only when they are asked for.  ``robust_lossfun.launches`` counts
   launches.
+* ``launch_path`` and ``launch_grid``: which pass of the kernel an (N, D)
+  input takes, ``"float4"`` or ``"scalar"``, and its 2-D grid; decided on
+  the host, so they run anywhere.
 * ``robust_lossfun_plain``: ``losses/robust/general.lossfun`` of the JAX
   package in PyTorch, with all five closed forms.  The kernel has the three
   the TPU kernel has (alpha == 0, alpha == 2, general), so on a CUDA tensor
@@ -22,7 +25,9 @@ scalars; the result is the elementwise loss rho(x, alpha, scale), (N, D).
 What bounds the kernel on an H100 is bytes: 12 B per element (x read, loss
 and dx written, ``BYTES_PER_ELEMENT``) plus the two D-float rows, against
 one ``powf`` or ``log1pf`` and a few divisions per element
-(``FLOPS_PER_ELEMENT`` is a generous count of them).
+(``FLOPS_PER_ELEMENT`` is a generous count of them).  So the kernel is one
+2-D pass with 16-byte accesses and each column's constants derived once
+(see the note in the CUDA source).
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ BYTES_PER_ELEMENT = 12
 # 40: a log2, a multiply and an exp2 in extended precision), the loss and dx
 # tails; an upper count, used only to show the bound is the bytes
 FLOPS_PER_ELEMENT = 64
+_THREADS = 256  # a block: 256 threads of four columns each
+_TARGET_BLOCKS = 132 * 8  # H100: 132 SMs, 2048 threads each
 
 
 def robust_lossfun_plain(x, alpha, scale, approximate: bool = False,
@@ -104,9 +111,24 @@ def _row(t, name, x):
             f"broadcast to one row of {D}") from None
 
 
+def launch_path(x) -> str:
+    """The kernel's pass for a contiguous (N, D) float32 ``x``: ``"float4"``
+    when D % 4 == 0 and x lies on a 16-byte boundary (the outputs the
+    wrapper allocates always do), else ``"scalar"``."""
+    return "float4" if x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0 else "scalar"
+
+
+def launch_grid(N: int, D: int) -> tuple:
+    """(columns, rows) of blocks: enough column blocks to cover D four
+    columns a thread, and row blocks up to about eight 256-thread blocks an
+    SM (at most N, and CUDA's 65535), each walking rows gridDim.y apart."""
+    gx = -(-D // (4 * _THREADS))
+    return gx, max(1, min(N, -(-_TARGET_BLOCKS // gx), 65535))
+
+
 def robust_loss_and_dx(x, alpha, scale):
     """(loss, d loss / dx), each (N, D), from one launch of the CUDA kernel.
-    x must be a contiguous float32 (N, D) CUDA tensor."""
+    x must be a float32 (N, D) CUDA tensor; a non-contiguous one is copied."""
     if x.device.type != "cuda":
         raise ValueError(f"robust_loss_and_dx: x is on {x.device}, not a CUDA device")
     if x.dtype != torch.float32:
@@ -121,18 +143,15 @@ def robust_loss_and_dx(x, alpha, scale):
     N, D = x.shape
     if N == 0 or D == 0:
         return loss, dx
-    lib = build.load("robust_loss")
-    fn = lib.mhpe_robust_loss
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), a.data_ptr(), c.data_ptr(), loss.data_ptr(),
-                dx.data_ptr(), N, D, stream)
-    if rc != 0:
-        raise RuntimeError(f"robust_loss kernel launch failed: cudaError {rc}")
+    if N >= 2**31 or D >= 2**31:
+        raise ValueError(f"robust_lossfun: {(N, D)} exceeds the kernel's int range")
+    fn = build.bind("robust_loss", "mhpe_robust_loss", [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ])
+    build.launch(fn, x.device, x.data_ptr(), a.data_ptr(), c.data_ptr(),
+                 loss.data_ptr(), dx.data_ptr(), N, D,
+                 int(launch_path(x) == "float4"), *launch_grid(N, D))
     robust_lossfun.launches += 1
     return loss, dx
 

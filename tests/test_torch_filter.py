@@ -107,8 +107,15 @@ def test_wrapper_raises_off_cpu_without_a_kernel():
         t_filter.filter_sgd(*planes, torch.zeros(2, 8, device="meta"), LR, 3)
 
 
-def test_steps_per_thread_respects_row_limit():
-    for B, T in [(1, 64), (128, 64), (128, 256), (32, 1920), (128, 1920), (1, 4096)]:
-        k = t_filter.steps_per_thread(B, T)
-        assert k in (1, 2, 4, 8)
-        assert -(-T // k) <= 512
+@pytest.mark.parametrize("B,T,n_cycles", [(3, 40, 25), (5, 16, 900)])
+def test_plain_filter_leaves_masked_tails_at_x0(rng, B, T, n_cycles):
+    """Masked steps are exact fixed points of the plain loop (wm = 0 and
+    pair = 0 there), so a masked tail comes out as x0 bit for bit: the
+    property that lets the CUDA kernel skip warps that hold only such
+    steps."""
+    inputs = _filter_inputs(rng, B, T)
+    masked = inputs[6] == 0
+    assert masked.any() and not masked.all()
+    for out, x0 in zip(_port(inputs, n_cycles), inputs[:3]):
+        np.testing.assert_array_equal(out[masked], x0[masked])
+        assert not np.array_equal(out[~masked], x0[~masked])

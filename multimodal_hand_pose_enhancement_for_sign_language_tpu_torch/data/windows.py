@@ -135,6 +135,13 @@ def pipeline_column_slices(pipeline):
     raise KeyError(f"unknown pipeline {pipeline}")
 
 
+def _window(arr, maxpad):
+    """One clip's (or its per-frame features') cutting+reflect window."""
+    if arr.shape[0] >= maxpad:
+        return arr[:maxpad]
+    return np.pad(arr, ((0, maxpad - arr.shape[0]), (0, 0)), "reflect")
+
+
 def assemble_windows(data, x_cols, y_cols, check_cols, feats=None,
                      maxpad=WINDOW_T):
     """Fused cutting+reflect equalize + pipeline slice + NaN drop.
@@ -145,35 +152,37 @@ def assemble_windows(data, x_cols, y_cols, check_cols, feats=None,
         X, Y = w[:, :, x_cols], w[:, :, y_cols]
         X, Y, feats = rmv_clips_nan(X, Y, feats)
 
-    but fills PREALLOCATED (N_kept, maxpad, ·) output arrays row by row
-    instead of building a 31k-element list of padded copies and then
-    np.array-ing it — on an overcommitted host, fresh transient pages are
-    the bottleneck (STATUS.md round-3 diagnosis), so the final arrays are
-    the only large allocations this path makes.
+    (per-frame features equalized by ``make_equal_len`` as well) but fills
+    PREALLOCATED (N_kept, maxpad, ·) output arrays row by row instead of
+    building a 31k-element list of padded copies and then np.array-ing it
+    — on an overcommitted host, fresh transient pages are the bottleneck
+    (STATUS.md round-3 diagnosis), so the final arrays are the only large
+    allocations this path makes.
 
     ``check_cols`` must be the union of the X and Y column blocks (the
     caller asserts this via :func:`pipeline_column_slices`): cutting
     happens BEFORE the NaN check in the legacy path, so a clip is dropped
     iff its first ``maxpad`` frames contain a NaN in those columns.
-    Reflect padding never introduces NaNs. ``feats`` is an optional
-    per-clip VECTOR feature array/list (sentence embeddings); per-frame
-    image features need the legacy path.
+    Reflect padding never introduces NaNs.  ``feats`` is optional, row for
+    row with ``data``: per-clip vectors (sentence embeddings) are kept
+    whole, per-frame (T_i, F) rows (image features) get the clips'
+    cutting+reflect window; a clip whose vector, or whose features'
+    window, holds a NaN is dropped.  (The reference's ``rmv_clips_nan``
+    reads a NaN in per-frame features as (clip, column) pairs and either
+    raises or drops the wrong clips; the drop here is its evident intent.)
 
     Returns (X, Y, feats_out, kept_indices).
     """
     dtypes = {arr.dtype for arr in data}
     dtype = np.result_type(*dtypes) if dtypes else np.float32
-    feats_arr = None
-    if feats is not None:
-        feats_arr = feats if isinstance(feats, np.ndarray) else None
+    rows = None if feats is None else [np.asarray(f) for f in feats]
+    per_frame = bool(rows) and rows[0].ndim >= 2
     kept = []
     for i, arr in enumerate(data):
         if np.isnan(arr[:maxpad, check_cols]).any():
             continue
-        frow = feats_arr[i] if feats_arr is not None else (
-            np.asarray(feats[i]) if feats is not None else None
-        )
-        if frow is not None and np.isnan(frow).any():
+        if rows is not None and np.isnan(rows[i][:maxpad] if per_frame
+                                         else rows[i]).any():
             continue
         kept.append(i)
 
@@ -182,21 +191,22 @@ def assemble_windows(data, x_cols, y_cols, check_cols, feats=None,
     y_width = len(range(*y_cols.indices(width)))
     X = np.empty((len(kept), maxpad, x_width), dtype)
     Y = np.empty((len(kept), maxpad, y_width), dtype)
+    F = None
+    if per_frame:
+        F = np.empty((len(kept), maxpad, *rows[0].shape[1:]),
+                     np.result_type(*{r.dtype for r in rows}))
     for j, i in enumerate(kept):
-        arr = data[i]
-        if arr.shape[0] >= maxpad:
-            w = arr[:maxpad]
-        else:
-            w = np.pad(arr, ((0, maxpad - arr.shape[0]), (0, 0)), "reflect")
+        w = _window(data[i], maxpad)
         X[j] = w[:, x_cols]
         Y[j] = w[:, y_cols]
-    feats_out = None
-    if feats is not None:
-        if feats_arr is not None:
-            feats_out = feats_arr[np.asarray(kept, dtype=int)]
+        if F is not None:
+            F[j] = _window(rows[i], maxpad)
+    if rows is not None and F is None:
+        if isinstance(feats, np.ndarray):
+            F = feats[np.asarray(kept, dtype=int)]
         else:
-            feats_out = np.asarray([feats[i] for i in kept])
-    return X, Y, feats_out, kept
+            F = np.asarray([rows[i] for i in kept])
+    return X, Y, F, kept
 
 
 def permute_rows_inplace(a, order):

@@ -26,6 +26,9 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.io import
     mkdir,
     save_binary,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.registry import (
+    needs_feats,
+)
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
     kinematics,
     rotations,
@@ -64,12 +67,16 @@ def run_inference(model, test_X, test_feats=None, batch_size: int = 128,
                   matmul_precision: str = "float32", device="cuda"):
     """Eval-mode batched forward over (N, T, D) numpy inputs.
 
-    ``model`` is a generator taking (B, D, T).  Returns (output (M, T, Dout)
+    ``model`` is a generator taking (B, D, T).  A conditioned one takes
+    ``test_feats`` too, row for row with ``test_X``: text (N, 512) per clip
+    or image features (N, T, 2000) per frame.  Returns (output (M, T, Dout)
     numpy, mean L1 error vs ``test_Y`` or None).  Batches follow the
     reference: the last one may be partial, and the loop stops at the first
     batch boundary past ``num_samples``.  ``matmul_precision`` is 'float32'
     (the default: TF32 off for convs and matmuls) or 'tensorfloat32'.
     """
+    if needs_feats(model) and test_feats is None:
+        raise ValueError("the model is conditioned on features: pass test_feats")
     dev = resolve_device(device)
     model = model.to(dev).eval()
     outputs = []

@@ -1,14 +1,16 @@
-"""Inference CLI of the port: the root ``inference.py`` for the v1 path.
+"""Inference CLI of the port: the root ``inference.py``.
 
     python -m multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.inference \\
-        --checkpoint models/experiment_checkpoint.pkl --data_dir video_data
+        --checkpoint models/experiment_checkpoint.pkl --data_dir video_data \\
+        [--model {v1,v2,v4,v4_deeper} --require_text | --model b2h --require_image]
 
-Loads r6d windows, standardizes them with the checkpoint's train-time
-statistics, runs the generator's eval forward (on CUDA unless
+Loads r6d windows (with the split's sentence embeddings under
+``--require_text``, its per-frame ResNet features ``{set}_vid_feats.pkl``
+under ``--require_image``), standardizes them with the checkpoint's
+train-time statistics, runs the generator's eval forward (on CUDA unless
 ``--device cpu``), de-standardizes and writes the r6d/aa/xyz result
 pickles.  The checkpoint is a reference ``.pth`` or a JAX-package ``.pkl``.
-Rendering GIFs and the image-conditioned (b2h) and bf16 options of the
-root CLI are not ported.
+Rendering GIFs and the bf16 option of the root CLI are not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constant
 
 
 def main(args):
+    if args.require_text and args.require_image:
+        raise ValueError("--require_text and --require_image exclude each other")
     pipeline = args.pipeline
     _, feature_out_dim = FEATURE_MAP[pipeline]
     r6d_path = f"{args.data_dir}/r6d_{args.infer_set}.pkl"
@@ -41,15 +45,17 @@ def main(args):
         text_path = f"{args.data_dir}/{args.infer_set}_sentence_embeddings.pkl"
     else:
         text_path = f"{args.data_dir}/average_{args.infer_set}_sentence_embeddings.pkl"
+    image_path = f"{args.data_dir}/{args.infer_set}_vid_feats.pkl"
     loaded = win_lib.load_windows(
         r6d_path, pipeline, require_text=args.require_text, text_path=text_path,
+        require_image=args.require_image, image_path=image_path,
         num_samples=args.num_samples, return_indices=True,
     )
     if loaded is None:
         raise FileNotFoundError(r6d_path)
     test_X, test_Y, orig_idx = loaded
     test_feats = None
-    if args.require_text:
+    if args.require_text or args.require_image:
         test_X, test_feats = test_X
     dropped = win_lib.nan_clip_indices(test_X, test_Y, test_feats)
     orig_idx = np.delete(np.asarray(orig_idx, dtype=int), dropped)
@@ -74,8 +80,8 @@ def main(args):
 
     model = registry.build_generator(
         args.model, test_X.shape[-1], feature_out_dim,
-        require_text=args.require_text, default_size=args.default_size,
-        device=args.device,
+        require_text=args.require_text, require_image=args.require_image,
+        default_size=args.default_size, device=args.device,
     )
     model.load_state_dict(load_generator_state(args.checkpoint), strict=True)
     output, error = infer_lib.run_inference(
@@ -108,11 +114,12 @@ def build_parser():
     p.add_argument("--data_dir", type=str, default="video_data", help="directory of the r6d/xyz pickles")
     p.add_argument("--pipeline", type=str, default="arm2wh", help="input/output joint pipeline")
     p.add_argument("--require_text", action="store_true", help="use text embeddings as input")
+    p.add_argument("--require_image", action="store_true", help="use per-frame image features as input (b2h)")
     p.add_argument("--embeds_type", type=str, default="normal", help='"normal" or "average" text embeds')
     p.add_argument("--infer_set", type=str, default="test", help="split to run on")
     p.add_argument("--batch_size", type=int, default=128, help="inference batch size")
     p.add_argument("--exp_name", type=str, default="experiment", help="experiment name")
-    p.add_argument("--model", type=str, default="v1", help="model architecture (v1 is ported)")
+    p.add_argument("--model", type=str, default="v1", help="model architecture: v1, b2h, v2, v4 or v4_deeper")
     p.add_argument("--default_size", type=int, default=256, help="generator embed width the checkpoint was trained with")
     p.add_argument("--num_samples", type=int, default=3000, help="number of sequences to predict")
     p.add_argument("--matmul_precision", type=str, default="float32", help="'float32' (TF32 off) or 'tensorfloat32'")

@@ -1,8 +1,8 @@
 """Model registry: short model name -> module, built with seeded weights.
 
-Counterpart of the JAX package's ``models/registry.py``.  Of the
-generators only "v1" (``regressor_fcn_bn_32``) is ported so far; the other
-names raise.  The discriminator is the one the reference has.
+Counterpart of the JAX package's ``models/registry.py``: the five
+generators by short name ("v1", "b2h", "v2", "v4", "v4_deeper") or class
+name, and the reference's discriminator.
 """
 
 from __future__ import annotations
@@ -24,6 +24,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device i
 
 _CLASSES = {
     "regressor_fcn_bn_32": generators.regressor_fcn_bn_32,
+    "regressor_fcn_bn_32_b2h": generators.regressor_fcn_bn_32_b2h,
+    "regressor_fcn_bn_32_v2": generators.regressor_fcn_bn_32_v2,
+    "regressor_fcn_bn_32_v4": generators.regressor_fcn_bn_32_v4,
+    "regressor_fcn_bn_32_v4_deeper": generators.regressor_fcn_bn_32_v4_deeper,
 }
 
 
@@ -33,22 +37,33 @@ def resolve(model: str) -> str:
 
 
 def build_generator(model: str, feature_in_dim: int, feature_out_dim: int,
-                    require_text: bool = False, default_size: int = 256,
-                    dropout_rate: float = 0.5, seed: int = 0, device="cuda"):
+                    require_text: bool = False, require_image: bool = False,
+                    default_size: int = 256, dropout_rate: float = 0.5,
+                    seed: int = 0, device="cuda"):
     """Build a generator on ``device`` in eval mode, its weights drawn with
     PyTorch's default initialisation from ``torch.Generator`` seeded with
     ``seed`` (the global RNG is not touched).  Load a checkpoint over them
-    with ``load_state_dict(..., strict=True)``."""
+    with ``load_state_dict(..., strict=True)``.  b2h takes
+    ``require_image``, the others ``require_text`` (JAX registry.py:54-68):
+    the flag the model does not take is ignored, as there."""
     name = resolve(model)
     if name not in _CLASSES:
-        raise NotImplementedError(
-            f"generator {model!r} is not ported yet; ported: {sorted(_CLASSES)}"
-        )
+        raise KeyError(f"unknown generator {model!r}; known: {sorted(_CLASSES)}")
+    cls = _CLASSES[name]
+    if cls is generators.regressor_fcn_bn_32_b2h:
+        cond = {"require_image": require_image}
+    else:
+        cond = {"require_text": require_text}
     return _materialize(
-        lambda: _CLASSES[name](
-            feature_in_dim, feature_out_dim, require_text=require_text,
-            default_size=default_size, dropout_rate=dropout_rate,
-        ), seed, device)
+        lambda: cls(feature_in_dim, feature_out_dim, default_size=default_size,
+                    dropout_rate=dropout_rate, **cond),
+        seed, device)
+
+
+def needs_feats(module) -> bool:
+    """Does the generator take text or image features?"""
+    return bool(getattr(module, "require_text", False)
+                or getattr(module, "require_image", False))
 
 
 def build_discriminator(feature_in_dim: int, dropout_rate: float = 0.5,

@@ -5,10 +5,9 @@ stats, standardizes, and shuffles with the reference's RandomState(23456).
 
 Numpy only, on this package's own ``data/`` modules.  It keeps one way of
 assembling a split: the preallocate-and-fill one (equalize, pipeline slice
-and NaN drop fused, standardization and shuffle in place), whose only large
-allocations are the final arrays.  That way needs float32 clips and no
-per-frame image features; anything else raises.  Text and image features
-are not loaded here yet: the trainer's CLI refuses them.
+and NaN drop fused, for the clips and their text or image features alike;
+standardization and shuffle in place), whose only large allocations are
+the final arrays.  The clips must be float32; anything else raises.
 
 Layout note: the reference trains in (N, D, T).  Arrays are returned as
 (N, T, D), the layout of this package's public functions (the trainer and
@@ -36,17 +35,36 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constant
 )
 
 
-def fetch_split(data_dir: str, split: str, pipeline: str, base_path: str = "./"):
-    """One split's r6d clips -> (X, Y) windows of 192 frames, (N, T, D):
-    cutting+reflect equalize, the pipeline's column slices and the NaN drop
-    in one pass over the clips (reference fetch_data :131-150 and the
-    rmv_clips_nan that follows it)."""
+def _feature_path(data_dir, split, require_text, require_image, embeds_type):
+    """The split's feature pickle, or None.  As the JAX package's
+    load_windows does, both flags together load none."""
+    if require_text and not require_image:
+        if embeds_type == "normal":
+            return f"{data_dir}/{split}_sentence_embeddings.pkl"
+        return f"{data_dir}/average_{split}_sentence_embeddings.pkl"
+    if require_image and not require_text:
+        return f"{data_dir}/{split}_vid_feats.pkl"
+    return None
+
+
+def fetch_split(data_dir: str, split: str, pipeline: str, require_text=False,
+                require_image=False, embeds_type: str = "normal",
+                base_path: str = "./"):
+    """One split's r6d clips -> (X, Y, feats|None): windows of 192 frames,
+    (N, T, D), the pipeline's column slices and the NaN drop in one pass
+    over the clips (reference fetch_data :131-150 and the rmv_clips_nan
+    that follows it).  Features come out row for row with X: per-clip text
+    (N, 512), or per-frame image features cut+reflected like the clips,
+    (N, T, 2000)."""
     path = os.path.join(base_path, data_dir, DATA_PATHS_r6d[split])
     data = load_binary(path)
     if not all(
         isinstance(arr, np.ndarray) and arr.dtype == np.float32 for arr in data
     ):
         raise ValueError(f"{path}: the clips must be float32 numpy arrays")
+    feats_path = _feature_path(data_dir, split, require_text, require_image,
+                               embeds_type)
+    feats = load_binary(feats_path) if feats_path else None
     x_cols, y_cols = win_lib.pipeline_column_slices(pipeline)
     if pipeline == "wh2wh":
         # the reference slices X to [36:] BEFORE the NaN check, so NaNs
@@ -60,8 +78,9 @@ def fetch_split(data_dir: str, split: str, pipeline: str, base_path: str = "./")
         )
         assert covered == set(range(width)), (pipeline, x_cols, y_cols)
         check_cols = slice(None)
-    X, Y, _, _ = win_lib.assemble_windows(data, x_cols, y_cols, check_cols)
-    return X, Y
+    X, Y, feats, _ = win_lib.assemble_windows(data, x_cols, y_cols, check_cols,
+                                              feats=feats)
+    return X, Y, feats
 
 
 def load_data(
@@ -70,16 +89,22 @@ def load_data(
     model_path: str,
     exp_name: str,
     rng: np.random.RandomState,
+    require_text=False,
+    require_image=False,
+    embeds_type="normal",
     base_path="./",
 ):
     """Reference load_data (:129-205) in (N, T, D) layout.
 
     Returns dict with train_X/train_Y/val_X/val_Y as (N, T, D) float32,
-    plus the standardization stats, and writes the stats to
+    train_feats/val_feats (None without features; the training rows
+    shuffled with the permutation of train_X), plus the standardization
+    stats, and writes the stats to
     ``{model_path}/{exp_name}{pipeline}_preprocess_core.npz``.
     """
-    train_X, train_Y = fetch_split(data_dir, "train", pipeline, base_path)
-    val_X, val_Y = fetch_split(data_dir, "val", pipeline, base_path)
+    feat_args = (require_text, require_image, embeds_type, base_path)
+    train_X, train_Y, train_feats = fetch_split(data_dir, "train", pipeline, *feat_args)
+    val_X, val_Y, val_feats = fetch_split(data_dir, "val", pipeline, *feat_args)
     assert not np.any(np.isnan(train_X)) and not np.any(np.isnan(train_Y))
     assert not np.any(np.isnan(val_X)) and not np.any(np.isnan(val_Y))
 
@@ -112,11 +137,15 @@ def load_data(
     rng.shuffle(I)
     win_lib.permute_rows_inplace(train_X, I)
     win_lib.permute_rows_inplace(train_Y, I)
+    if train_feats is not None:
+        win_lib.permute_rows_inplace(train_feats, I)
 
     return dict(
         train_X=train_X,
         train_Y=train_Y,
         val_X=val_X,
         val_Y=val_Y,
+        train_feats=train_feats,
+        val_feats=val_feats,
         stats=(mean_X, std_X, mean_Y, std_Y),
     )

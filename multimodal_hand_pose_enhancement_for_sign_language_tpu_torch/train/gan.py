@@ -16,14 +16,19 @@ re-design of the reference train_gan.py:
   * Adam(lr, wd=0) for G and for D.
 
 The public layout is the JAX package's: steps and epoch loops take
-x (B, T, Din) and y (B, T, Dout); a batch is transposed on the device for
-the (B, D, T) models.  The trainer holds its state in its modules and
-optimizers (``checkpoint_payload`` / ``load_checkpoint_payload`` carry it).
-Everything is float32 on one device; TF32 is switched off for each step
-and restored afterwards.  cuDNN's choice of algorithms is left to PyTorch's
-own switch: with ``torch.backends.cudnn.deterministic = True`` a run is a
-function of its seed bit for bit (PERF.md has what that switch did to the
-step rates and to the discriminator's gradients on an H100).  With
+x (B, T, Din) and y (B, T, Dout), and for a conditioned generator feats,
+text (B, 512) or image features (B, T, 2000), which only the generator
+sees; a batch is transposed on the device for the (B, D, T) models.  The
+trainer holds its state in its modules and optimizers
+(``checkpoint_payload`` / ``load_checkpoint_payload`` carry it).
+Everything is float32 on one device.  Each step runs with TF32 off and
+cuDNN off, both restored afterwards: the convolutions are PyTorch's own
+CUDA ones.  On an H100 cuDNN runs the 512-channel convolutions as FFTs,
+each such layer's output 2.4-6.1 times as far from float64 as PyTorch's
+own;
+on these ill-conditioned steps that leaves some gradients up to 11491
+times as far from a float64 step as the CPU's, and a G step takes up to
+4.8 times as long (PERF.md, ``chip_step_precision.py``).  With
 ``loss="RobustLoss"`` the regression loss of every G and val step on a CUDA
 device runs through the hand-written ``ops/robust_loss`` kernel.
 """
@@ -84,6 +89,8 @@ class GanConfig:
     epochs_train_disc: int = 3
     disc_label_smooth: bool = False
     loss: str = "L1"
+    require_text: bool = False
+    require_image: bool = False
     default_size: int = 256
     seed: int = 23456
     effective_gan: bool = False  # extension: real adversarial gradient
@@ -94,11 +101,17 @@ class GanConfig:
 
 
 def _float32_step(fn):
-    """Run a step with TF32 off for convs and matmuls, then restore."""
+    """Run a step with TF32 off for convs and matmuls and cuDNN off, then
+    restore both."""
     @functools.wraps(fn)
     def wrapped(self, *args, **kwargs):
-        with conv_matmul_precision("float32"):
-            return fn(self, *args, **kwargs)
+        was = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = False
+        try:
+            with conv_matmul_precision("float32"):
+                return fn(self, *args, **kwargs)
+        finally:
+            torch.backends.cudnn.enabled = was
     return wrapped
 
 
@@ -113,6 +126,7 @@ class GanTrainer:
         self.device = resolve_device(device)
         self.generator = registry.build_generator(
             cfg.model, cfg.feature_in_dim, cfg.feature_out_dim,
+            require_text=cfg.require_text, require_image=cfg.require_image,
             default_size=cfg.default_size, dropout_rate=cfg.dropout_rate,
             seed=cfg.seed, device=self.device,
         )
@@ -155,14 +169,14 @@ class GanTrainer:
         return torch.mean(robust_lossfun(resid, alpha, scale) + log_partition)
 
     # ------------------------------------------------------------------
-    # steps: x (B, T, Din), y (B, T, Dout) on the trainer's device
+    # steps: x (B, T, Din), y (B, T, Dout), feats on the trainer's device
     # ------------------------------------------------------------------
     @_float32_step
-    def g_step(self, x, y):
+    def g_step(self, x, y, feats=None):
         """One generator update; returns the loss (a 0-d device tensor)."""
         self.generator.train()
         self.discriminator.eval()
-        y_hat = self.generator(x.transpose(1, 2))
+        y_hat = self.generator(x.transpose(1, 2), feats)
         fake_motion = calc_motion(y_hat)
         if self.cfg.effective_gan:
             fake_score = self.discriminator(fake_motion)
@@ -177,14 +191,14 @@ class GanTrainer:
         return g_loss.detach()
 
     @_float32_step
-    def d_step(self, x, y):
+    def d_step(self, x, y, feats=None):
         """One discriminator update; returns the loss.  G runs in eval mode
         under no_grad; D takes two sequential train-mode forwards, fake then
         real, so its running statistics update twice in that order."""
         self.generator.eval()
         self.discriminator.train()
         with torch.no_grad():
-            fake = self.generator(x.transpose(1, 2))
+            fake = self.generator(x.transpose(1, 2), feats)
         fake_motion = calc_motion(fake)
         real_motion = calc_motion(y.transpose(1, 2))
         t_fake, t_real = (0.1, 0.9) if self.cfg.disc_label_smooth else (0.0, 1.0)
@@ -197,10 +211,10 @@ class GanTrainer:
         return d_loss.detach()
 
     @_float32_step
-    def val_step(self, x, y):
+    def val_step(self, x, y, feats=None):
         self.generator.eval()
         with torch.no_grad():
-            y_hat = self.generator(x.transpose(1, 2))
+            y_hat = self.generator(x.transpose(1, 2), feats)
             return self._reg(y_hat, y)
 
     def _step(self, kind):
@@ -209,32 +223,36 @@ class GanTrainer:
     # ------------------------------------------------------------------
     # epoch loops
     # ------------------------------------------------------------------
-    def run_epoch(self, X, Y, kind: str, batch_size: int) -> float:
-        """One pass over (N, T, D)-layout numpy arrays, batch by batch from
-        the host.  Drops the last incomplete batch (reference
-        integer-division semantics).  The batch losses stay on the device;
-        their mean is read once, at the end of the epoch."""
+    def run_epoch(self, X, Y, kind: str, batch_size: int, feats=None) -> float:
+        """One pass over (N, T, D)-layout numpy arrays (and the features of
+        the same rows), batch by batch from the host.  Drops the last
+        incomplete batch (reference integer-division semantics).  The batch
+        losses stay on the device; their mean is read once, at the end of
+        the epoch."""
         step = self._step(kind)
         losses = []
         for bi in range(X.shape[0] // batch_size):
             sl = slice(bi * batch_size, (bi + 1) * batch_size)
-            x = torch.from_numpy(np.ascontiguousarray(X[sl])).to(self.device)
-            y = torch.from_numpy(np.ascontiguousarray(Y[sl])).to(self.device)
-            losses.append(step(x, y))
+            x, y, f = (None if a is None else
+                       torch.from_numpy(np.ascontiguousarray(a[sl])).to(self.device)
+                       for a in (X, Y, feats))
+            losses.append(step(x, y, f))
         return float(torch.stack(losses).mean()) if losses else 0.0
 
-    def stage(self, X, Y):
-        """Move the full (N, T, D) dataset to the device once, for resident
-        epochs; returns Staged records."""
-        return as_staged(X, self.device), as_staged(Y, self.device)
+    def stage(self, *arrays):
+        """Move full (N, ...) arrays -- X, Y and the features, if any -- to
+        the device once, for resident epochs; returns one Staged record per
+        array (None stays None)."""
+        return tuple(as_staged(a, self.device) for a in arrays)
 
     def run_epoch_resident(self, X_dev, Y_dev, perm, kind: str,
-                           batch_size: int) -> float:
-        """Epoch over staged device data with a host-provided permutation
-        (pass np.arange(N) for no shuffle, e.g. validation): only the
-        permutation crosses to the device; each batch is gathered there."""
-        X_dev, Y_dev = as_staged(X_dev, self.device), as_staged(Y_dev, self.device)
-        nb = X_dev.dev.shape[0] // batch_size
+                           batch_size: int, F_dev=None) -> float:
+        """Epoch over staged device data (and features, gathered like X)
+        with a host-provided permutation (pass np.arange(N) for no shuffle,
+        e.g. validation): only the permutation crosses to the device; each
+        batch is gathered there."""
+        staged = [as_staged(a, self.device) for a in (X_dev, Y_dev, F_dev)]
+        nb = staged[0].dev.shape[0] // batch_size
         if nb == 0:
             return 0.0
         step = self._step(kind)
@@ -242,9 +260,10 @@ class GanTrainer:
                                dtype=torch.int64).to(self.device)
         losses = []
         for idx in perm.reshape(nb, batch_size):
-            x = unflatten_batch(X_dev.dev.index_select(0, idx), X_dev.trail)
-            y = unflatten_batch(Y_dev.dev.index_select(0, idx), Y_dev.trail)
-            losses.append(step(x, y))
+            x, y, f = (None if a is None else
+                       unflatten_batch(a.dev.index_select(0, idx), a.trail)
+                       for a in staged)
+            losses.append(step(x, y, f))
         return float(torch.stack(losses).mean())
 
     # ------------------------------------------------------------------

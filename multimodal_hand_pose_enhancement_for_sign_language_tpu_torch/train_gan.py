@@ -1,7 +1,8 @@
-"""GAN training CLI of the port: the root ``train_gan.py`` for the v1 path.
+"""GAN training CLI of the port: the root ``train_gan.py``.
 
     python -m multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train_gan \\
-        --data_dir video_data --loss RobustLoss --disc_label_smooth
+        --data_dir video_data --loss RobustLoss --disc_label_smooth \\
+        [--model {v1,v2,v4,v4_deeper} --require_text | --model b2h --require_image]
 
 Same flags, same schedule (D every ``epochs_train_disc``-th epoch after
 epoch 0, otherwise G then validation at half batch, early stop past epoch
@@ -43,14 +44,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.metrics 
 
 # flag -> (is it set?, the ROADMAP item that ports its feature)
 _NOT_PORTED = {
-    "model": (lambda a: a.model not in ("v1", "regressor_fcn_bn_32"),
-              "queue 1: the other generators"),
     "bf16": (lambda a: a.bf16, "queue 1: compute_dtype bfloat16"),
     "log_grad_flow": (lambda a: a.log_grad_flow != 0, "queue 1: grad_flow with viz/track_grads"),
     "prng_impl": (lambda a: a.prng_impl is not None,
                   "no counterpart: dropout masks come from a torch.Generator"),
-    "require_text": (lambda a: a.require_text, "queue 1: the other generators and their features"),
-    "require_image": (lambda a: a.require_image, "queue 1: the other generators and their features"),
 }
 
 
@@ -66,6 +63,8 @@ def main(args, epoch_hook=None):
     for flag, (is_set, item) in _NOT_PORTED.items():
         if is_set(args):
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
+    if args.require_text and args.require_image:
+        raise ValueError("--require_text and --require_image exclude each other")
     _, feature_out_dim = FEATURE_MAP[args.pipeline]
     rng = np.random.RandomState(23456)
 
@@ -87,10 +86,12 @@ def main(args, epoch_hook=None):
 
     data = data_lib.load_data(
         args.data_dir, args.pipeline, args.model_path, args.exp_name, rng,
-        base_path=args.base_path,
+        require_text=args.require_text, require_image=args.require_image,
+        embeds_type=args.embeds_type, base_path=args.base_path,
     )
     train_X, train_Y = data["train_X"], data["train_Y"]
     val_X, val_Y = data["val_X"], data["val_Y"]
+    train_feats, val_feats = data["train_feats"], data["val_feats"]
     print(f"===> in/out train {train_X.shape} {train_Y.shape}", flush=True)
     print(f"===> in/out val   {val_X.shape} {val_Y.shape}", flush=True)
 
@@ -106,6 +107,8 @@ def main(args, epoch_hook=None):
         epochs_train_disc=args.epochs_train_disc,
         disc_label_smooth=args.disc_label_smooth,
         loss=args.loss,
+        require_text=args.require_text,
+        require_image=args.require_image,
         effective_gan=args.effective_gan,
         default_size=args.default_size,
         window_t=train_X.shape[1],
@@ -114,18 +117,20 @@ def main(args, epoch_hook=None):
     if args.epoch_scan:
         # device-resident path: stage the dataset on the device once; only
         # the reference-exact shuffle permutation crosses per epoch
-        tr = trainer.stage(train_X, train_Y)
-        va = trainer.stage(val_X, val_Y)
+        trX, trY, trF = trainer.stage(train_X, train_Y, train_feats)
+        vaX, vaY, vaF = trainer.stage(val_X, val_Y, val_feats)
         order = np.arange(len(train_X))
         val_order = np.arange(len(val_X))
 
-        def run_epoch(X, Y, kind, batch_size):
+        def run_epoch(X, Y, F, kind, batch_size):
             if kind == "val":
-                return trainer.run_epoch_resident(*va, val_order, kind, batch_size)
-            return trainer.run_epoch_resident(*tr, order, kind, batch_size)
+                return trainer.run_epoch_resident(vaX, vaY, val_order, kind,
+                                                  batch_size, vaF)
+            return trainer.run_epoch_resident(trX, trY, order, kind, batch_size, trF)
 
     else:
-        run_epoch = trainer.run_epoch
+        def run_epoch(X, Y, F, kind, batch_size):
+            return trainer.run_epoch(X, Y, kind, batch_size, F)
 
     last_checkpoint = None
     if args.use_checkpoint:
@@ -148,7 +153,7 @@ def main(args, epoch_hook=None):
         if epoch > 0 and (
             args.epochs_train_disc == 0 or epoch % args.epochs_train_disc == 0
         ):
-            d_loss = run_epoch(train_X, train_Y, "d", args.batch_size)
+            d_loss = run_epoch(train_X, train_Y, train_feats, "d", args.batch_size)
             print(
                 f"Epoch [{epoch}/{args.num_epochs-1}], Tr. Disc. Loss: {d_loss}",
                 flush=True,
@@ -157,7 +162,7 @@ def main(args, epoch_hook=None):
             if epoch_hook is not None:
                 epoch_hook(epoch, "d", trainer, {"loss_train_disc": d_loss})
         else:
-            g_loss = run_epoch(train_X, train_Y, "g", args.batch_size)
+            g_loss = run_epoch(train_X, train_Y, train_feats, "g", args.batch_size)
             print(
                 f"Epoch [{epoch}/{args.num_epochs-1}], Tr. Loss: {g_loss:.4f}, "
                 f"Tr. Perplexity: {np.exp(min(g_loss, 700)):5.4f}",
@@ -165,7 +170,8 @@ def main(args, epoch_hook=None):
             )
             sink.log({"epoch": epoch, "loss_train_gen": g_loss})
 
-            val_loss = run_epoch(val_X, val_Y, "val", max(args.batch_size // 2, 1))
+            val_loss = run_epoch(val_X, val_Y, val_feats, "val",
+                                 max(args.batch_size // 2, 1))
             print(
                 f"Epoch [{epoch}/{args.num_epochs-1}], Val. Loss: {val_loss:.4f}",
                 flush=True,
@@ -208,6 +214,8 @@ def main(args, epoch_hook=None):
             order = order[I]  # compose permutations; data stays on the device
         else:
             train_X, train_Y = train_X[I], train_Y[I]
+            if train_feats is not None:
+                train_feats = train_feats[I]
 
     if last_checkpoint:
         shutil.copyfile(
@@ -225,8 +233,8 @@ def build_parser():
     parser.add_argument('--num_epochs', type=int, default=200, help='number of training epochs')
     parser.add_argument('--batch_size', type=int, default=128, help='batch size for training')
     parser.add_argument('--learning_rate', type=float, default=1e-4, help='learning rate for training G and D')
-    parser.add_argument('--require_text', action="store_true", help="use additional text embeddings or not (not ported yet)")
-    parser.add_argument('--require_image', action="store_true", help="use additional image features or not (not ported yet)")
+    parser.add_argument('--require_text', action="store_true", help="condition the generator on the clips' sentence embeddings")
+    parser.add_argument('--require_image', action="store_true", help="condition the generator on per-frame image features (b2h)")
     parser.add_argument('--embeds_type', type=str, default="normal", help='if "normal", use normal text embeds; if "average", use avg text embeds')
     parser.add_argument('--model_path', type=str, default="models/", help='path for saving trained models')
     parser.add_argument('--log_step', type=int, default=25, help='step size for printing log info')
@@ -236,7 +244,7 @@ def build_parser():
     parser.add_argument('--use_checkpoint', action="store_true", help="use checkpoint from which to start training")
     parser.add_argument('--prng_impl', type=str, default=None, choices=["rbg", "threefry2x32"], help="the JAX CLI's dropout PRNG choice; has no counterpart here and raises when given")
     parser.add_argument('--epochs_train_disc', type=int, default=3, help='train the discriminator every epochs_train_disc epochs')
-    parser.add_argument('--model', type=str, default="v1", help='model architecture to be used (v1 is ported)')
+    parser.add_argument('--model', type=str, default="v1", help='model architecture: v1, b2h, v2, v4 or v4_deeper')
     parser.add_argument('--disc_label_smooth', action="store_true", help="if True, use label smoothing for the discriminator")
     parser.add_argument('--data_dir', type=str, default="video_data", help='directory where results should be stored and loaded from')
     parser.add_argument('--loss', type=str, default="L1", help='Loss to optimize the generator over')

@@ -5,7 +5,8 @@
   ``train.checkpoint.save_checkpoint`` (with an optax Adam state and a typed
   PRNG key inside) loads, and its generator weights load into the port's
   v1 with ``strict=True``, equal to the converter's output in this process.
-* Statically, no module of the port and not chip_smoke.py imports them.
+* Statically, no module of the port, not chip_smoke.py and not
+  chip_step_precision.py imports them.
 * chip_smoke.py refuses to run (nonzero exit, no result line) on a machine
   without CUDA.
 """
@@ -113,7 +114,8 @@ def _imported_modules(path):
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
-    files = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / PORT).rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "chip_step_precision.py"]
     assert len(files) > 40
     for f in files:
         for name in _imported_modules(f):

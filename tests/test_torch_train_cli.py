@@ -275,8 +275,7 @@ def test_losses_follow_the_root_cli_without_dropout(workdir, monkeypatch, epoch_
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("bf16", True), ("log_grad_flow", 2), ("prng_impl", "rbg"), ("model", "v2"),
-    ("require_text", True), ("require_image", True),
+    ("bf16", True), ("log_grad_flow", 2), ("prng_impl", "rbg"),
 ])
 def test_unported_flags_raise_and_name_the_roadmap(workdir, flag, value):
     args = _args(t_cli, workdir, "nope", device="cpu", **{flag: value})

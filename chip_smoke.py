@@ -38,6 +38,19 @@ val, then D; every regression loss through ``robust_loss``) and serve
 from their checkpoints through ``inference.main``; one G and one D step of
 v4_deeper and of b2h are held against the CPU as v1's are.
 
+Classifier: the port's ``data/synthetic`` writes seeded r6d clips with
+learnable categories and 384-wide sentence embeddings.  The LSTM topic
+classifier at the root CLI's defaults (hidden 1024, 10 layers, B=128,
+T=192) runs its eval forward unidirectional and bidirectional, held
+against the CPU's float32 and float64 evaluations (TF32 must miss the
+bound), and one Adam step held as the GAN steps are;
+``classifier_main.main`` trains 2 epochs twice with the same seeds
+(identical losses, a strictly loading ``.pth``, the CSV) and
+``classifier_mlp_main.main`` 2 epochs; train and val rates with one epoch
+traced; a small LSTM and the MLP must clear the JAX package's learning
+bars; remat at the grouped_r6d window (T=2112) must equal the plain run
+to the bit with a lower peak memory.
+
 Prints one line per phase, then a JSON line describing each kernel (with
 its launch plan and, for the filter, its bound over the live elements and
 its FP32 issue floor from the instructions counted in the built
@@ -49,6 +62,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -61,6 +75,8 @@ import numpy as np
 import torch
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import (
+    classifier_main,
+    classifier_mlp_main,
     infer,
     inference,
     train_gan,
@@ -68,13 +84,17 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import (
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
     io,
     standardize,
+    synthetic as clf_synthetic,
     windows,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import engine
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.losses.robust import (
     AdaptiveLossFunction,
 )
-from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import registry
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import (
+    classifier as clf_models,
+    registry,
+)
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
     build,
     filter_sgd as fs,
@@ -84,6 +104,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
     checkpoint as ckpt_lib,
+    classifier as clf_train,
     data as data_lib,
     gan,
 )
@@ -288,8 +309,8 @@ def hold_robust(N, D, rng, reps=20):
     # kernel's time is its device span under the profiler; the wrapper's
     # time between two events, host-bound at the small shapes, goes beside it
     wrapper_ms = cuda_ms(lambda: rl.robust_loss_and_dx(x, alpha, c), reps=reps)
-    _, by_name = profiled(lambda: [rl.robust_loss_and_dx(x, alpha, c)
-                                   for _ in range(reps)])
+    _, by_name, _ = profiled(lambda: [rl.robust_loss_and_dx(x, alpha, c)
+                                      for _ in range(reps)])
     spans = [v for k, v in by_name.items() if "robust_loss_kernel" in k]
     if not spans:
         raise AssertionError("the profiler saw no robust_loss_kernel span: "
@@ -593,14 +614,24 @@ def _one_step(kind, x, y, device, dtype=torch.float32, model="v1", cond=None,
 
 def step_against_cpu(kind, x, y, model="v1", cond=None, feats=None):
     """One ``kind`` step ('g' or 'd') of ``model`` on the card, on the CPU,
-    and on the CPU in float64, from the same seeded weights and batch.
-    Fails beyond the STEP_* tolerances; returns what came out.  The running
-    statistics, and the parameters the loss does not reach (they must not
-    move), are held at STEP_ATOL."""
+    and on the CPU in float64, from the same seeded weights and batch,
+    held by ``hold_step``."""
     cfg = dict(model=model, cond=cond, feats=feats)
-    loss_card, sd_card, g_card = _one_step(kind, x, y, "cuda", **cfg)
-    loss_cpu, sd_cpu, g_cpu = _one_step(kind, x, y, "cpu", **cfg)
-    _, _, g_ref = _one_step(kind, x, y, "cpu", torch.float64, **cfg)
+    return hold_step({"model": model, "conditioning": cond, "step": kind},
+                     _one_step(kind, x, y, "cuda", **cfg), _one_step(kind, x, y, "cpu", **cfg),
+                     _one_step(kind, x, y, "cpu", torch.float64, **cfg), STEP_LR)
+
+
+def hold_step(head, card, cpu, ref, lr):
+    """Hold one step on the card against the same step on the CPU and on the
+    CPU in float64: each a (loss, state_dict after the step, gradients) from
+    the same weights and batch.  Fails beyond the STEP_* tolerances, with
+    ``lr`` the step's learning rate; returns what came out (``head`` first).
+    The running statistics, and the parameters the loss does not reach
+    (they must not move), are held at STEP_ATOL."""
+    loss_card, sd_card, g_card = card
+    loss_cpu, sd_cpu, g_cpu = cpu
+    g_ref = ref[2]
     worst = worst_masked = worst_stat = err_card = err_cpu = grad_max = ratio = 0.0
     masked = masked_cpu = masked_fixed = total = flips_card = flips_cpu = 0
     ratio_at = worst_at = None
@@ -629,7 +660,7 @@ def step_against_cpu(kind, x, y, model="v1", cond=None, feats=None):
             worst, worst_at = float((diff * keep).max()), k
         worst_masked = max(worst_masked, float((diff * ~keep).max()))
     row = {
-        "model": model, "conditioning": cond, "step": kind,
+        **head,
         "loss_card": loss_card, "loss_cpu": loss_cpu,
         "loss_rel_err": abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1e-30),
         "running_stat_err": worst_stat, "grad_abs_max": grad_max,
@@ -643,12 +674,11 @@ def step_against_cpu(kind, x, y, model="v1", cond=None, feats=None):
     }
     log("step card vs cpu " + json.dumps(row))
     if not (row["loss_rel_err"] <= STEP_LOSS_RTOL and worst_stat <= STEP_ATOL
-            and worst <= STEP_ATOL and worst_masked <= 2 * STEP_LR + STEP_ATOL
+            and worst <= STEP_ATOL and worst_masked <= 2 * lr + STEP_ATOL
             and err_card <= STEP_GRAD_FACTOR * err_cpu
             and ratio <= STEP_TENSOR_FACTOR
             and row["masked_share"] <= STEP_MASKED_SHARE):
-        raise AssertionError(f"the card's {model} {kind} step disagrees with the "
-                             f"CPU's: {row}")
+        raise AssertionError(f"the card's step {head} disagrees with the CPU's: {row}")
     return row
 
 
@@ -944,10 +974,340 @@ def conditioned_phase(xyz, r6d):
     return launches
 
 
+# classifier phase: the LSTM topic classifier at the root CLI's defaults
+# (hidden 1024, 10 layers, unidirectional, B=128, T=192; the reference's
+# main.py:143-160) on the r6d width of seeded clips, and the sentence MLP
+CLS_HIDDEN, CLS_LAYERS = 1024, 10
+CLS_BATCH = 128
+CLS_TRAIN_CLIPS = 512  # 4 train steps an epoch at B=128; val 256 clips, 2 steps
+CLS_EPOCHS = 2
+CLS_CPU_ROWS = 16  # rows of the card's B=128 forward also evaluated on the CPU
+CLS_STEP_BATCH = 4  # the step check's batch (at full width)
+# the card's float32 logits may be CLS_FWD_FACTOR times as far from a
+# float64 evaluation as the CPU's float32 ones, and no further; TF32 must
+# land beyond that
+CLS_FWD_FACTOR = 2.0
+CLS_LR, CLS_WD = 1e-4, 1e-3  # classifier_main's defaults
+CLS_GROUPED_T = 2112  # --data_type grouped_r6d's window (train/classifier.load_data)
+CLS_REMAT_BATCH = 8
+# the JAX package's learning bars (tests/test_classifier.py:195, :226)
+CLS_LSTM_BAR, CLS_MLP_BAR = 0.4, 0.5
+
+
+def lstm_flops(B, T, D, H, L, dirs, classes=10):
+    """2 x the multiply-adds of one ClassifLSTM forward: every layer's and
+    direction's input and recurrent products, and the head."""
+    f = sum(dirs * 2 * B * T * 4 * H * ((D if k == 0 else dirs * H) + H) for k in range(L))
+    return f + 2 * B * T * dirs * H * classes
+
+
+def _lstm_kwargs(D, bidir, **over):
+    return {"input_size": D, "hidden_size": CLS_HIDDEN, "num_layers": CLS_LAYERS,
+            "bidirectional": bidir, **over}
+
+
+def cls_forward(X):
+    """Eval logits of the full-width LSTM, unidirectional and bidirectional,
+    seeded weights: the card's B=128 forward at float32 and at TF32, its
+    first CLS_CPU_ROWS rows held against the CPU's float32 and float64
+    evaluations; forward ms and TFLOP/s."""
+    x = torch.from_numpy(X[:CLS_BATCH])
+    rows = []
+    for bidir in (False, True):
+        cpu = clf_models.build_classifier("lstm", device="cpu",
+                                          **_lstm_kwargs(X.shape[-1], bidir))
+        card = copy.deepcopy(cpu).to("cuda")
+        xc = x.to("cuda")
+        got, ms = {}, {}
+        with torch.no_grad():
+            for precision in ("float32", "tensorfloat32"):
+                with infer.conv_matmul_precision(precision):
+                    got[precision] = card(xc)[:CLS_CPU_ROWS].double().cpu()
+                    ms[precision] = cuda_ms(lambda: card(xc), reps=3)
+            del card, xc
+            want = cpu(x[:CLS_CPU_ROWS]).double()
+            ref = cpu.double()(x[:CLS_CPU_ROWS].double())
+        del cpu
+        err_cpu = float((want - ref).abs().max())
+        err = {p: float((g - ref).abs().max()) for p, g in got.items()}
+        # the spread behind the bound: each row's card error over the CPU's
+        ratio = ((got["float32"] - ref).abs().flatten(1).amax(1)
+                 / (want - ref).abs().flatten(1).amax(1)).sort().values
+        flops = lstm_flops(CLS_BATCH, X.shape[1], X.shape[-1], CLS_HIDDEN, CLS_LAYERS,
+                           1 + bidir)
+        row = {"bidirectional": bidir, "batch": CLS_BATCH, "T": X.shape[1],
+               "rows_held": CLS_CPU_ROWS, "logit_abs_max": float(ref.abs().max()),
+               "err_cpu_float32_vs_float64": err_cpu,
+               "err_card_float32_vs_float64": err["float32"],
+               "err_card_tensorfloat32_vs_float64": err["tensorfloat32"],
+               "card_vs_cpu_float32": float((got["float32"] - want).abs().max()),
+               "ratio": err["float32"] / err_cpu,
+               "row_ratio_min_median_max": [float(ratio[0]), float(ratio.median()),
+                                            float(ratio[-1])],
+               "bound": CLS_FWD_FACTOR * err_cpu, "tflop": flops * 1e-12,
+               "forward_ms_float32": ms["float32"],
+               "forward_ms_tensorfloat32": ms["tensorfloat32"],
+               "tflops_float32": flops / ms["float32"] * 1e-9,
+               "tflops_tensorfloat32": flops / ms["tensorfloat32"] * 1e-9}
+        log("classifier forward " + json.dumps(row))
+        if not err["float32"] <= CLS_FWD_FACTOR * err_cpu:
+            raise AssertionError(f"classifier float32 forward on the card off: {row}")
+        if not err["tensorfloat32"] > CLS_FWD_FACTOR * err_cpu:
+            raise AssertionError(f"the classifier check cannot tell TF32 from float32: {row}")
+        rows.append(row)
+    return rows
+
+
+def _cls_one_step(net, x, y):
+    """(loss, state_dict after, effective gradients) of one step of ``net``
+    (on its device, in its dtype), dropout 0, Adam with its coupled weight
+    decay: the gradient Adam sees is g + wd * p."""
+    p = next(net.parameters())
+    p0 = {k: v.detach().double().cpu() for k, v in net.state_dict().items()}
+    tr = clf_train.ClassifierTrainer(net, learning_rate=CLS_LR, weight_decay=CLS_WD)
+    loss, _ = tr.train_step(torch.from_numpy(x).to(device=p.device, dtype=p.dtype),
+                            torch.from_numpy(y - 1).to(p.device))
+    grads = {k: v.grad.double().cpu() + CLS_WD * p0[k]
+             for k, v in net.state_dict(keep_vars=True).items()}
+    return float(loss), {k: v.detach().cpu() for k, v in net.state_dict().items()}, grads
+
+
+def cls_step(X, Y):
+    """One full-width unidirectional step from the seeded weights on the
+    card, on the CPU and on the CPU in float64, held as the GAN steps are."""
+    x, y = X[:CLS_STEP_BATCH], np.asarray(Y[:CLS_STEP_BATCH], np.int64)
+    base = clf_models.build_classifier("lstm", device="cpu", dropout=0.0,
+                                       **_lstm_kwargs(X.shape[-1], False))
+    card, cpu, ref = (_cls_one_step(copy.deepcopy(base).to(device=d, dtype=t), x, y)
+                      for d, t in (("cuda", torch.float32), ("cpu", torch.float32),
+                                   ("cpu", torch.float64)))
+    return hold_step({"model": "ClassifLSTM", "step": "Adam", "batch": CLS_STEP_BATCH},
+                     card, cpu, ref, CLS_LR)
+
+
+def _cls_metrics(models_dir):
+    (name,) = [f for f in os.listdir(models_dir) if f.startswith("metrics_")]
+    with open(os.path.join(models_dir, name)) as f:
+        return [json.loads(line) for line in f]
+
+
+def cls_cli(tmp, data_dir, X):
+    """``classifier_main.main`` at its defaults (dropout 0.1) for CLS_EPOCHS
+    epochs, twice with the same seeds: finite losses, identical per-epoch
+    losses in the two runs, a best-val ``.pth`` that loads strictly, the
+    CSV; then ``classifier_mlp_main.main``."""
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the CLIs write GT_predY.csv to the working directory
+    try:
+        runs = []
+        for run in ("a", "b"):
+            args = classifier_main.build_parser().parse_args([
+                "--data_dir", data_dir, "--models_dir", os.path.join(tmp, f"models_{run}"),
+                "--num_epochs", str(CLS_EPOCHS), "--device", "cuda"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            best = classifier_main.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append(_cls_metrics(args.models_dir))
+            log(f"classifier_main.main (hidden {args.hidden_size}, {args.num_layers} layers, "
+                f"bidir {args.bidir}, B={args.batch_size}, dropout {args.dropout}): "
+                f"{CLS_EPOCHS} epochs in {wall:.3f} s, best val acc {best:.4f}; "
+                + "; ".join(json.dumps({k: r[k] for k in ("epoch", "loss_train", "loss_val",
+                                                           "acc_train", "acc_val")})
+                            for r in runs[-1]))
+        losses = [[(r["loss_train"], r["loss_val"]) for r in rows] for rows in runs]
+        if not all(np.isfinite(v).all() for v in losses) or len(losses[0]) != CLS_EPOCHS:
+            raise AssertionError(f"classifier CLI: bad losses {losses}")
+        if losses[0] != losses[1]:
+            raise AssertionError(f"classifier CLI: two runs with the same seeds differ {losses}")
+        ckpt = os.path.join(args.models_dir, f"{args.exp_name}_checkpoint.pth")
+        fresh = clf_models.build_classifier("lstm", device="cuda", seed=0,
+                                            **_lstm_kwargs(X.shape[-1], False))
+        fresh.load_state_dict(ckpt_lib.load_classifier_state(ckpt), strict=True)
+        with open(os.path.join(tmp, "GT_predY.csv"), encoding="ISO-8859-1") as f:
+            n_csv = sum(1 for _ in f) - 1
+        log(f"classifier checkpoint {os.path.basename(ckpt)} loads strictly; "
+            f"GT_predY.csv {n_csv} rows; the two runs' losses identical")
+
+        margs = classifier_mlp_main.build_parser().parse_args([
+            "--data_dir", data_dir, "--models_dir", os.path.join(tmp, "models_mlp"),
+            "--num_epochs", str(CLS_EPOCHS), "--device", "cuda"])
+        best = classifier_mlp_main.main(margs)
+        rows = _cls_metrics(margs.models_dir)
+        log(f"classifier_mlp_main.main: {CLS_EPOCHS} epochs, best val acc {best:.4f}; "
+            + "; ".join(f"epoch {r['epoch']} loss {r['loss_train']:.6f} / {r['loss_val']:.6f}"
+                        for r in rows))
+        if len(rows) != CLS_EPOCHS or not all(np.isfinite([r["loss_train"], r["loss_val"]]).all()
+                                              for r in rows):
+            raise AssertionError(f"classifier_mlp_main: bad losses {rows}")
+    finally:
+        os.chdir(cwd)
+
+
+def cls_rates(X, Y, Xv, Yv):
+    """Steps/s and frames/s of train and val epochs at the CLI's defaults,
+    resident, with the peak memory of training; one train epoch traced."""
+    net = clf_models.build_classifier("lstm", device="cuda",
+                                      **_lstm_kwargs(X.shape[-1], False, dropout=0.1))
+    tr = clf_train.ClassifierTrainer(net)
+    dX, dY = tr.stage(X, Y)
+    vX, vY = tr.stage(Xv, Yv)
+    order = np.arange(len(X))
+    for kind, reps, epoch, n in (
+            ("train", 2, lambda: tr.train_epoch_resident(dX, dY, order, CLS_BATCH), len(X)),
+            ("val", 3, lambda: tr.val_epoch_resident(vX, vY, CLS_BATCH), len(Xv))):
+        epoch()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            epoch()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = reps * (n // CLS_BATCH)
+        log(f"classifier rate {kind} epoch (resident, B={CLS_BATCH}, T={X.shape[1]}, float32): "
+            f"{steps} steps in {dt:.3f} s = {steps / dt:.3f} steps/s, "
+            f"{steps * CLS_BATCH * X.shape[1] / dt:.1f} frames/s, "
+            f"{dt / steps * 1e3:.1f} ms a step; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log_trace(f"one classifier train epoch, {len(X) // CLS_BATCH} steps of B={CLS_BATCH} "
+              "(resident)", *profiled(lambda: tr.train_epoch_resident(
+                  dX, dY, order, CLS_BATCH)), "RNN")
+
+
+def cls_learns(tmp):
+    """The JAX package's learning bars on the card: a small LSTM (hidden 64,
+    1 layer, Adam 3e-3) and the sentence MLP (Adam 1e-3) on categ_signal
+    fixtures, best val accuracy within 60 epochs."""
+    best = {}
+    for kind, kw, bar in (
+            ("lstm", dict(t_range=(60, 140)), CLS_LSTM_BAR),
+            ("mlp", dict(t_range=(40, 60), text_dim=384), CLS_MLP_BAR)):
+        d = os.path.join(tmp, f"learn_{kind}")
+        clf_synthetic.make_r6d_dataset(d, n_clips=54, seed=7, save_image_feats=False,
+                                       categ_signal=True, device="cuda", **kw)
+        if kind == "lstm":
+            (X, Y), (Xv, Yv) = (clf_train.load_data(d, "r6d", k) for k in ("train", "val"))
+            net = clf_models.build_classifier("lstm", seed=0, device="cuda",
+                                              input_size=X.shape[-1], hidden_size=64,
+                                              num_layers=1, bidirectional=False)
+            tr = clf_train.ClassifierTrainer(net, learning_rate=3e-3, weight_decay=0.0)
+        else:
+            (X, Y), (Xv, Yv) = (classifier_mlp_main.load_mlp_data(d, k)
+                                for k in ("train", "val"))
+            net = clf_models.build_classifier("mlp", seed=0, device="cuda")
+            tr = clf_train.ClassifierTrainer(net, learning_rate=1e-3, weight_decay=0.0,
+                                             last_timestep_only=False)
+        accs = []
+        for _ in range(60):
+            tr.train_epoch(X, Y, 16)
+            accs.append(tr.val_epoch(Xv, Yv, 16)[1])
+        best[kind] = max(accs)
+        log(f"classifier learns ({kind}): best val acc {best[kind]:.4f} over 60 epochs "
+            f"(bar {bar}); every 10th epoch {accs[::10]}")
+        if not best[kind] > bar:
+            raise AssertionError(f"the {kind} classifier did not learn on the card: {best}")
+    return best
+
+
+def cls_remat(data_dir, D):
+    """Remat at the grouped_r6d window: a batch of CLS_REMAT_BATCH clips of
+    T=2112 (grouped from the train clips, as Truer6d_train.pkl), one
+    CE-on-last-timestep backward at full width with and without remat:
+    logits and gradients equal to the bit, peak memory lower with remat.
+    Then the peak of one bidirectional B=128, T=192 step, with and without
+    remat, and ``should_remat``'s answers on the card."""
+    clips = io.load_binary(os.path.join(data_dir, "r6d_train.pkl"))
+    categs = io.load_binary(os.path.join(data_dir, "categs_train.pkl"))
+    per = -(-CLS_GROUPED_T // min(c.shape[0] for c in clips))  # clips a group
+    groups = [np.concatenate(clips[i * per:(i + 1) * per]) for i in range(CLS_REMAT_BATCH)]
+    io.save_binary(groups, os.path.join(data_dir, "Truer6d_train.pkl"))
+    io.save_binary([categs[i * per] for i in range(CLS_REMAT_BATCH)],
+                   os.path.join(data_dir, "Truecategs_train.pkl"))
+    X, Y = clf_train.load_data(data_dir, "grouped_r6d", "train")
+    if X.shape != (CLS_REMAT_BATCH, CLS_GROUPED_T, D):
+        raise AssertionError(f"grouped batch {X.shape}")
+
+    def backward(x, y, bidir, remat):
+        net = clf_models.build_classifier("lstm", device="cuda", dropout=0.0, remat=remat,
+                                          **_lstm_kwargs(D, bidir)).train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with infer.conv_matmul_precision("float32"):
+            out = net(x)
+            torch.nn.functional.cross_entropy(out[:, -1], y).backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        grads = {k: p.grad for k, p in net.state_dict(keep_vars=True).items()}
+        return out.detach(), grads, peak, wall
+
+    x = torch.from_numpy(X).to("cuda")
+    y = torch.from_numpy(np.asarray(Y, np.int64) - 1).to("cuda")
+    plain = backward(x, y, False, False)
+    remat = backward(x, y, False, True)
+    same_out = torch.equal(plain[0], remat[0])
+    same_grad = all(torch.equal(g, remat[1][k]) for k, g in plain[1].items())
+    row = {"batch": CLS_REMAT_BATCH, "T": CLS_GROUPED_T, "bidirectional": False,
+           "logits_equal": same_out, "grads_equal": same_grad,
+           "logit_diff": float((plain[0] - remat[0]).abs().max()),
+           "peak_gib_plain": plain[2] / 2**30, "peak_gib_remat": remat[2] / 2**30,
+           "s_plain": plain[3], "s_remat": remat[3],
+           "estimate_gib_plain": clf_train.lstm_activation_bytes(
+               CLS_REMAT_BATCH, CLS_GROUPED_T, CLS_HIDDEN, CLS_LAYERS, False) / 2**30}
+    del plain, remat, x, y
+    xb = torch.from_numpy(np.stack([c[:WINDOW_T] for c in clips[:CLS_BATCH]])).to("cuda")
+    yb = torch.from_numpy(np.asarray(categs[:CLS_BATCH], np.int64) - 1).to("cuda")
+    for remat in (False, True):
+        _, _, peak, wall = backward(xb, yb, True, remat)
+        row[f"bidir_b128_t192_peak_gib_{'remat' if remat else 'plain'}"] = peak / 2**30
+        row[f"bidir_b128_t192_s_{'remat' if remat else 'plain'}"] = wall
+    row["bidir_b128_t192_estimate_gib"] = clf_train.lstm_activation_bytes(
+        CLS_BATCH, WINDOW_T, CLS_HIDDEN, CLS_LAYERS, True) / 2**30
+    row["should_remat_b128"] = {
+        f"T{t}_{'bidir' if b else 'unidir'}": clf_train.should_remat(
+            CLS_BATCH, t, CLS_HIDDEN, CLS_LAYERS, b, device="cuda")
+        for t in (WINDOW_T, CLS_GROUPED_T) for b in (False, True)}
+    log("classifier remat " + json.dumps(row))
+    if not (same_out and same_grad):
+        raise AssertionError(f"remat changed the LSTM's logits or gradients: {row}")
+    if not row["peak_gib_remat"] < row["peak_gib_plain"]:
+        raise AssertionError(f"remat did not lower the peak memory: {row}")
+    return row
+
+
+def classifier_phase():
+    """The downstream classifiers on the card: seeded r6d clips with
+    learnable categories and 384-wide sentence embeddings, written by the
+    port's ``data/synthetic``; the full-width forward and one step against
+    the CPU, both CLIs, rates, learning, remat."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as tmp:
+        data_dir = os.path.join(tmp, "video_data")
+        t0 = time.perf_counter()
+        clf_synthetic.make_r6d_dataset(data_dir, n_clips=CLS_TRAIN_CLIPS, t_range=(192, 256),
+                                       seed=SEED, text_dim=384, save_image_feats=False,
+                                       categ_signal=True, device="cuda")
+        (X, Y), (Xv, Yv) = (clf_train.load_data(data_dir, "r6d", k) for k in ("train", "val"))
+        log(f"classifier data: train {X.shape}, val {Xv.shape} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name, part in (("forward", lambda: cls_forward(X)), ("step", lambda: cls_step(X, Y)),
+                           ("CLIs", lambda: cls_cli(tmp, data_dir, X)),
+                           ("rates", lambda: cls_rates(X, Y, Xv, Yv)),
+                           ("learning", lambda: cls_learns(tmp)),
+                           ("remat", lambda: cls_remat(data_dir, X.shape[-1]))):
+            t0 = time.perf_counter()
+            part()
+            log(f"classifier {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def profiled(fn):
-    """Run ``fn`` under torch.profiler: (wall s, {kernel name: device s}).
-    The device-busy time is the sum of the values (one stream, so the CUDA
-    kernel spans do not overlap)."""
+    """Run ``fn`` under torch.profiler: (wall s, {kernel name: device s},
+    device busy s).  The busy time is the union of the CUDA kernels' spans:
+    cuDNN's RNNs run kernels on streams of their own, so spans can overlap
+    and their sum can exceed the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -956,16 +1316,23 @@ def profiled(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict = {}
+    spans = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
-    return wall, by_name
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, reach = 0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy, reach = busy + end - start, end
+        elif end > reach:
+            busy, reach = busy + end - reach, end
+    return wall, by_name, busy * 1e-6
 
 
-def log_trace(label, wall, by_name, kernel):
+def log_trace(label, wall, by_name, busy, kernel):
     """One line for a traced window: wall, device busy, idle share, the time
     in the kernels whose name holds ``kernel``, and the top five."""
-    busy = sum(by_name.values())
     if busy <= 0:
         log(f"trace {label}: wall {wall:.3f} s; device time not measured "
             "(the profiler saw no CUDA kernels)")
@@ -973,7 +1340,8 @@ def log_trace(label, wall, by_name, kernel):
     own = sum(v for k, v in by_name.items() if kernel in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"trace {label}: wall {wall:.3f} s, device busy {busy:.3f} s "
-        f"(idle share {1 - busy / wall:.3f}), {kernel} {own:.4f} s; top: "
+        f"(idle share {1 - busy / wall:.3f}; kernel time summed {sum(by_name.values()):.3f} s), "
+        f"{kernel} {own:.4f} s; top: "
         + "; ".join(f"{n[:60]} {t:.4f} s" for n, t in top))
 
 
@@ -1017,6 +1385,9 @@ def main() -> int:
     t0 = time.perf_counter()
     robust_launches += conditioned_phase(xyz, r6d)
     log(f"conditioned phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    classifier_phase()
+    log(f"classifier phase: {time.perf_counter() - t0:.1f} s")
 
     main_row = prod[-1]  # B=128, T=1920: the longest production bucket
     robust_row = robust[0]  # (128, 48384): the G step's residual

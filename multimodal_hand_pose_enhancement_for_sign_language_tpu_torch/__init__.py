@@ -7,10 +7,12 @@ hand-written kernel launches (or raises), and on a CPU tensor its plain
 PyTorch version runs.
 
 Layout mirrors the JAX package: ``ops/`` (geometry and the Hopper
-kernels), ``lifting/`` (2D -> 3D engine), ``models/`` (generator,
-discriminator and the weights bridge), ``losses/`` (element losses and the
-adaptive robust loss), ``data/`` (pickles, windows, standardization),
-``train/`` (the GAN trainer, its data and checkpoints), ``infer.py``
-(enhancement forward and result pickles) and the ``lift``, ``train_gan``
-and ``inference`` CLIs.
+kernels), ``lifting/`` (2D -> 3D engine), ``models/`` (generators,
+discriminator, the downstream classifiers and the weights bridge),
+``losses/`` (element losses and the adaptive robust loss), ``data/``
+(pickles, windows, standardization, categories, synthetic fixtures),
+``train/`` (the GAN and classifier trainers, their data, optimizers and
+checkpoints), ``infer.py`` (enhancement forward and result pickles) and the
+``lift``, ``train_gan``, ``inference``, ``classifier_main`` and
+``classifier_mlp_main`` CLIs.
 """

@@ -105,3 +105,39 @@ def robust_state_dict(robust_params) -> dict:
     """The adaptive loss's latent tree -> ``AdaptiveLossFunction`` state_dict."""
     return {k: _t(robust_params[k]) for k in ("latent_alpha", "latent_scale")
             if k in robust_params}
+
+
+_GATES = ("i", "f", "g", "o")  # nn.LSTM's gate order in weight_ih / weight_hh
+
+
+def classifier_state_dict(params) -> dict:
+    """The JAX ``ClassifLSTM`` params tree -> state_dict in the reference's
+    ``nn.LSTM`` + ``Linear`` layout, the inverse of the JAX package's
+    ``torch_port.classifier_from_torch_state``.  Cell ``lstm{k}_{f|b}_cell``
+    holds per-gate input kernels ``i{gate}.kernel`` (in + 1, H) whose last
+    row is ``bias_ih`` (the JAX model appends a constant-1 input column) and
+    recurrent ``h{gate}.{kernel, bias}`` (H, H), (H,): the weights ``_hh``
+    and ``bias_hh``."""
+    sd: dict = {}
+    k = 0
+    while f"lstm{k}_f_cell" in params:
+        for tag, suffix in (("f", ""), ("b", "_reverse")):
+            cell = params.get(f"lstm{k}_{tag}_cell")
+            if cell is None:
+                continue
+            w_i = [np.asarray(cell[f"i{g}"]["kernel"]) for g in _GATES]
+            sd[f"lstm.weight_ih_l{k}{suffix}"] = _t(np.concatenate([w[:-1].T for w in w_i]))
+            sd[f"lstm.weight_hh_l{k}{suffix}"] = _t(np.concatenate(
+                [np.asarray(cell[f"h{g}"]["kernel"]).T for g in _GATES]))
+            sd[f"lstm.bias_ih_l{k}{suffix}"] = _t(np.concatenate([w[-1] for w in w_i]))
+            sd[f"lstm.bias_hh_l{k}{suffix}"] = _t(np.concatenate(
+                [np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES]))
+        k += 1
+    sd.update(_dense("Linear", params["Linear"]))
+    return sd
+
+
+def sentence_classifier_state_dict(params) -> dict:
+    """The JAX ``SentenceClassifier`` params (``fc1``, ``fc2``) -> the
+    reference's ``classifier.0`` / ``classifier.2`` layout."""
+    return {**_dense("classifier.0", params["fc1"]), **_dense("classifier.2", params["fc2"])}

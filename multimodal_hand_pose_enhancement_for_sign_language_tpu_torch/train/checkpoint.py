@@ -16,6 +16,12 @@ import jax, optax and the JAX package to rebuild those; ``_NumpyUnpickler``
 resolves numpy arrays and builtin containers only and turns every other
 class into an inert stand-in, so only ``state.g_params`` and
 ``state.g_stats`` (plain dicts of numpy arrays) are read for real.
+
+The classifier CLIs keep the best-val-accuracy model as
+``{exp}_checkpoint.pth``: ``{'epoch', 'state_dict', 'optimizer'}`` with the
+weights in the reference's keys.  The JAX package's classifier checkpoint
+is a pickle of ``{'epoch', 'params', 'opt_state'}`` (optax state, read
+inert); ``load_classifier_state`` reads either.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ import numpy as np
 import torch
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.convert import (
+    classifier_state_dict,
     generator_state_dict,
+    sentence_classifier_state_dict,
 )
 
 _SAFE_BUILTINS = frozenset({
@@ -115,3 +123,16 @@ def load_generator_state(path: str) -> dict:
     return generator_state_dict(
         {"params": state["g_params"], "batch_stats": state["g_stats"]}
     )
+
+
+def load_classifier_state(path: str) -> dict:
+    """Classifier state_dict (reference key layout, CPU tensors) from a
+    ``.pth`` written by the classifier CLIs or the reference, or from a
+    JAX-package ``.pkl``; an LSTM's tree has ``Linear``, the sentence MLP's
+    ``fc1``."""
+    if path.endswith(".pth"):
+        return dict(load_checkpoint(path)["state_dict"])
+    params = load_jax_pickle(path)["params"]
+    if "fc1" in params:
+        return sentence_classifier_state_dict(params)
+    return classifier_state_dict(params)

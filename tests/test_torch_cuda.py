@@ -9,13 +9,22 @@ JAX.  There, skip the JAX-only conftest:
 Tolerances, each against the kernel's plain PyTorch version and each the
 JAX package's own for its Pallas kernel: the filter atol 2e-4
 (test_pallas_kernels.py:44); the robust loss rtol 1e-5 / atol 1e-6, its dx
-rtol 1e-4 / atol 1e-6 (test_pallas_kernels.py:108, :122).
+rtol 1e-4 / atol 1e-6 (test_pallas_kernels.py:108, :122).  The classifier
+LSTM (cuDNN, no kernel of the port) is held against a float64 evaluation
+on the CPU: the card's float32 logits may be twice as far from it as the
+CPU's float32 ones, and TF32 must miss that bound.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.infer import (
+    conv_matmul_precision,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.classifier import (
+    build_classifier,
+)
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
     filter_sgd as fs,
     robust_loss as rl,
@@ -229,3 +238,25 @@ def test_robust_loss_kernel_refuses_bad_input(cuda):
         rl.robust_lossfun(x, alpha, c[:, :5])
     with pytest.raises(ValueError, match=r"\(N, D\)"):
         rl.robust_lossfun(x[0], alpha, c)
+
+
+@pytest.mark.cuda
+def test_classifier_lstm_on_the_card_is_float32(cuda):
+    """A mid-width bidirectional LSTM (hidden 256, 2 layers, T=192), seeded
+    weights: the card's logits within 2x the CPU's float32 error against a
+    float64 evaluation; with TF32 on, beyond it."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(16, 192, 288).astype(np.float32))
+    kw = dict(input_size=288, hidden_size=256, num_layers=2, bidirectional=True)
+    cpu = build_classifier("lstm", device="cpu", **kw)
+    card = build_classifier("lstm", device=cuda, **kw)
+    with torch.no_grad():
+        want = cpu(x).double()
+        ref = cpu.double()(x.double())
+        got = {}
+        for precision in ("float32", "tensorfloat32"):
+            with conv_matmul_precision(precision):
+                got[precision] = card(x.to(cuda)).double().cpu()
+    err_cpu = float((want - ref).abs().max())
+    assert 0 < float((got["float32"] - ref).abs().max()) <= 2 * err_cpu
+    assert float((got["tensorfloat32"] - ref).abs().max()) > 2 * err_cpu

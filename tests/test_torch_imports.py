@@ -89,7 +89,10 @@ def test_port_imports_and_loads_a_jax_checkpoint_without_jax(tmp_path):
                  "losses.robust.distribution", "losses.robust.general",
                  "losses.robust.cubic_spline", "losses.robust.util",
                  "train.gan", "train.data", "train.staging", "train.schedulers",
-                 "train.checkpoint", "utils.metrics", "train_gan"):
+                 "train.checkpoint", "utils.metrics", "train_gan",
+                 "models.classifier", "train.classifier", "train.optim",
+                 "data.categories", "data.synthetic", "classifier_main",
+                 "classifier_mlp_main"):
         assert f"{PORT}.{name}" in info["modules"], name
     want = convert.generator_state_dict(variables)
     got = np.load(out)

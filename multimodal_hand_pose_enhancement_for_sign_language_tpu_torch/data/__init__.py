@@ -1,1 +1,3 @@
-"""Pickle persistence, windowing and standardization (numpy only)."""
+"""Pickles, windows, standardization, categories, synthetic fixtures, and the
+raw-data entry: OpenPose JSON ingestion, text ids and dataset assembly
+(numpy only)."""

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -46,60 +47,83 @@ def make_openpose_tree(
     utts_per_video: int = 2,
     frames: int = 8,
     seed: int = 0,
+    videos=None,
+    splits=SPLITS,
 ):
     """Write a raw OpenPose-format dataset under `root`.
 
-    Returns dict with 'dataset_path', 'text_paths', 'categ_paths'.
+    Each of ``splits`` gets ``n_videos`` videos of ``utts_per_video``
+    utterances of ``frames`` frames, or, with ``videos`` (a list of
+    utterance counts), one video per entry.  The same arguments draw the
+    JAX package's tree.  Frames are drawn in order here and written by a
+    few threads, an utterance at a time (file creation, not the draws, is
+    the cost of a large tree).  Returns dict with 'dataset_path',
+    'text_paths', 'categ_paths'.
     """
     rng = np.random.RandomState(seed)
+    if videos is None:
+        videos = [utts_per_video] * n_videos
     text_paths, categ_paths = {}, {}
-    for split in SPLITS:
-        json_root = os.path.join(
-            root, split, "rgb_front", "features", "openpose_output", "json"
-        )
-        os.makedirs(json_root, exist_ok=True)
-        lines = []
-        categ_rows = ["videoID,categoryID"]
-        for v in range(n_videos):
-            vid = _utt_id(v, 0)[:11]
-            categ_rows.append(f"{vid},{1 + (v % 9)}")
-            for u in range(utts_per_video):
-                uid = _utt_id(v, u)
-                utt_dir = os.path.join(json_root, uid)
-                os.makedirs(utt_dir, exist_ok=True)
-                lines.append(f"{uid} synthetic sentence about topic {v}.")
-                for t in range(frames):
-                    body = rng.uniform(100, 500, size=25 * 3)
-                    body[2::3] = rng.uniform(0.5, 1.0, size=25)
-                    rh = rng.uniform(100, 500, size=21 * 3)
-                    rh[2::3] = rng.uniform(0.5, 1.0, size=21)
-                    lh = rng.uniform(100, 500, size=21 * 3)
-                    lh[2::3] = rng.uniform(0.5, 1.0, size=21)
-                    frame = {
-                        "people": [
-                            {
-                                "pose_keypoints_2d": body.tolist(),
-                                "hand_right_keypoints_2d": rh.tolist(),
-                                "hand_left_keypoints_2d": lh.tolist(),
-                            }
-                        ]
-                    }
-                    fname = f"{uid}_{t:012d}_keypoints.json"
-                    with open(os.path.join(utt_dir, fname), "w") as f:
-                        json.dump(frame, f)
-        text_path = os.path.join(root, f"{split}.text.id.en")
-        with open(text_path, "w") as f:
-            f.write("\n".join(lines) + "\n")
-        text_paths[split] = text_path
-        categ_path = os.path.join(root, f"videoID_categoryID_{split}.csv")
-        with open(categ_path, "w") as f:
-            f.write("\n".join(categ_rows) + "\n")
-        categ_paths[split] = categ_path
+    with ThreadPoolExecutor(max_workers=8) as writers:
+        pending = []
+        for split in splits:
+            json_root = os.path.join(
+                root, split, "rgb_front", "features", "openpose_output", "json"
+            )
+            os.makedirs(json_root, exist_ok=True)
+            lines = []
+            categ_rows = ["videoID,categoryID"]
+            for v, n_utts in enumerate(videos):
+                vid = _utt_id(v, 0)[:11]
+                categ_rows.append(f"{vid},{1 + (v % 9)}")
+                for u in range(n_utts):
+                    uid = _utt_id(v, u)
+                    utt_dir = os.path.join(json_root, uid)
+                    os.makedirs(utt_dir, exist_ok=True)
+                    lines.append(f"{uid} synthetic sentence about topic {v}.")
+                    files = [(os.path.join(utt_dir, f"{uid}_{t:012d}_keypoints.json"),
+                              json.dumps(_frame(rng))) for t in range(frames)]
+                    pending.append(writers.submit(_write_all, files))
+            text_path = os.path.join(root, f"{split}.text.id.en")
+            with open(text_path, "w") as f:
+                f.write("\n".join(lines) + "\n")
+            text_paths[split] = text_path
+            categ_path = os.path.join(root, f"videoID_categoryID_{split}.csv")
+            with open(categ_path, "w") as f:
+                f.write("\n".join(categ_rows) + "\n")
+            categ_paths[split] = categ_path
+        for job in pending:
+            job.result()  # re-raise a failed write
     return {
         "dataset_path": root,
         "text_paths": text_paths,
         "categ_paths": categ_paths,
     }
+
+
+def _frame(rng) -> dict:
+    """One OpenPose frame: BODY_25 and two hands of (x, y, confidence)."""
+    body = rng.uniform(100, 500, size=25 * 3)
+    body[2::3] = rng.uniform(0.5, 1.0, size=25)
+    rh = rng.uniform(100, 500, size=21 * 3)
+    rh[2::3] = rng.uniform(0.5, 1.0, size=21)
+    lh = rng.uniform(100, 500, size=21 * 3)
+    lh[2::3] = rng.uniform(0.5, 1.0, size=21)
+    return {
+        "people": [
+            {
+                "pose_keypoints_2d": body.tolist(),
+                "hand_right_keypoints_2d": rh.tolist(),
+                "hand_left_keypoints_2d": lh.tolist(),
+            }
+        ]
+    }
+
+
+def _write_all(files) -> None:
+    for path, text in files:
+        with open(path, "w") as f:
+            f.write(text)
 
 
 # width of the per-frame ResNet image features (b2h's conditioning input)

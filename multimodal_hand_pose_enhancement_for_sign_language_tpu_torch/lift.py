@@ -4,7 +4,8 @@
         --data_dir video_data
 
 For each split, reads the 2D keypoint clips ``{data_dir}/xy_{split}.pkl``
-(written by process_dataset.py's ingestion), lifts them to 3D with the
+(written by the ingestion of the port's ``process_dataset``, which runs
+this stage itself with ``--lift``), lifts them to 3D with the
 partitioned, resumable ``lift_2d_to_3d`` into ``xyz_{split}.pkl``, then
 converts xyz -> axis-angle -> r6d into ``r6d_{split}.pkl`` (and, for the
 train split, the mean bone lengths into ``lengths_train.pkl``).

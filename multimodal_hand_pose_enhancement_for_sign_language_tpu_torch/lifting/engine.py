@@ -133,6 +133,12 @@ def _pack(chunk, tb: int):
     return kps, masks, noises
 
 
+def lift_clip(kp, n_cycles: int = _N_CYCLES, device="cuda") -> np.ndarray:
+    """Lift one (T, 150) 2D-keypoint clip to 3D (drop-in for the reference's
+    utils/utils.py:_lift_2d_to_3d)."""
+    return lift_clips([np.asarray(kp)], n_cycles=n_cycles, device=device)[0]
+
+
 def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
                max_batch: int = 128, device="cuda") -> list:
     """Lift a list of (T_i, 150) clips to (T_i, 150) xyz, shape-bucketed.

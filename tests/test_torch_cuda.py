@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (marked ``cuda``; skipped without
-one), and the host-side launch plans, which run anywhere.
+one), and the host-side launch plans, which run anywhere, with the long-row
+filter's segmented schedule replayed on the CPU in the plain arithmetic.
 
 This file imports torch and the port only, so it runs on a machine without
 JAX.  There, skip the JAX-only conftest:
@@ -36,6 +37,20 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _long_inputs(B, T, device="cpu", seed=0):
+    """Random planes for long rows, each with another live end: row 0 a
+    masked tail of 101 steps, row 1 half masked, row 2 all live, row 3 all
+    masked (the pow2 padding of a batch)."""
+    ins = _inputs(B, T, device, seed=seed, live=B)
+    ends = [T - 101, T // 2, T, 0]
+    mask = ins[6]
+    for b in range(B):
+        mask[b] = 0.0
+        mask[b, : ends[b % 4]] = 1.0
+    ins[5] *= mask[:, :, None]
+    return ins
 
 
 def _inputs(B, T, device, seed=0, live=None):
@@ -88,10 +103,111 @@ def test_launch_plan_layouts(B, T, n_cycles):
     assert (R * L * W) % 32 == 0 and R * L * W <= 576
 
 
-@pytest.mark.parametrize("T", [0, 4097])
+# (B, T) -> the plan of a row longer than one block's 4320 steps (K, L, W,
+# R, G, H): G segments of W - 2 owned warps, H = 240 steps of halo and
+# cycles a launch; T = 4097 (the first T the kernel once refused) and 4320
+# stay in one block of 18 warps
+LONG_CASES = {
+    (1, 4097): (8, 32, 18, 1),
+    (4, 4320): (8, 32, 18, 1),
+    (1, 4321): (8, 32, 12, 1, 2, 240),
+    (4, 4321): (8, 32, 12, 1, 2, 240),
+    (1, 8641): (8, 32, 15, 1, 3, 240),
+    (4, 8641): (8, 32, 15, 1, 3, 240),
+    (1, 20000): (8, 32, 16, 1, 6, 240),
+    (4, 20000): (8, 32, 16, 1, 6, 240),
+    (2, 5000): (8, 32, 13, 1, 2, 240),
+    (1, 69121): (8, 32, 18, 1, 19, 240),
+}
+
+
+@pytest.mark.parametrize("B,T", list(LONG_CASES))
+def test_launch_plan_long_rows(B, T):
+    """Segments of at most 16 owned warps cover the row, and no fewer would
+    do; each block (owned warps and the two halo warps) stays within 576
+    threads."""
+    plan = fs.launch_plan(B, T)
+    assert plan == LONG_CASES[(B, T)]
+    if len(plan) == 4:
+        K, L, W, R = plan
+        assert 30 * K * W >= T > 30 * K * (W - 1) and W <= 18
+        return
+    K, L, W, R, G, H = plan
+    assert (K, L, R, H) == (8, 32, 1, 30 * K) and T > 18 * H
+    assert (W - 2) * H * G >= T > (W - 3) * H * G and W - 2 <= 16
+    assert 16 * H * (G - 1) < T and 32 * W <= 576
+
+
+@pytest.mark.parametrize("T", [0])
 def test_launch_plan_refuses_t_out_of_range(T):
     with pytest.raises(ValueError, match="outside"):
         fs.launch_plan(4, T)
+
+
+def _windowed_plain(ins, lr, n_cycles):
+    """The segmented schedule of a long row, run with the plain version's
+    arithmetic: each segment's block holds its owned steps, H steps of
+    halo on either side and the halo lanes' 8 more, knows nothing beyond
+    them (NaN there), takes the whole row's t_real, and runs at most H
+    cycles a launch from the state the last launch wrote."""
+    import torch.nn.functional as F
+
+    x0, y0, z0, tarx, tary, w, mask = ins
+    B, T = mask.shape
+    K, L, W, R, G, H = fs.launch_plan(B, T)
+    S, P = (W - 2) * H, H + K  # owned steps; a window's reach past them
+    t_real = mask.sum(dim=1)[:, None, None]
+    denom_data, denom_smooth = t_real * 50, (t_real - 1.0) * 50
+    extra = P + G * S - T
+
+    def pad(a):
+        return F.pad(a, (0, 0, P, extra)) if a.dim() == 3 else F.pad(a, (P, extra))
+
+    m, tx, ty, wm = pad(mask), pad(tarx), pad(tary), pad(w * mask[:, :, None])
+    state = [x0, y0, z0]
+    nan = float("nan")
+    for i in range(-(-n_cycles // H)):
+        cycles = min(H, n_cycles - i * H)
+        full = [pad(s) for s in state]
+        new = [torch.empty_like(s) for s in state]
+        for g in range(G):
+            lo, hi = g * S, g * S + S + 2 * P  # the window in padded steps
+            mw = m[:, lo:hi]
+            pair = (mw[:, :-1] * mw[:, 1:])[:, :, None]
+            xs, ys, zs = (s[:, lo:hi] for s in full)
+            txw, tyw, wmw = tx[:, lo:hi], ty[:, lo:hi], wm[:, lo:hi]
+
+            def smooth(s):
+                d2 = 2.0 * ((s[:, :-1] - s[:, 1:]) * pair)
+                return (F.pad(d2, (0, 0, 0, 1), value=nan)
+                        - F.pad(d2, (0, 0, 1, 0), value=nan))
+
+            for _ in range(cycles):
+                gx = 2.0 * wmw * (xs - txw) / denom_data + smooth(xs) / denom_smooth
+                gy = 2.0 * wmw * (ys - tyw) / denom_data + smooth(ys) / denom_smooth
+                gz = smooth(zs) / denom_smooth
+                xs, ys, zs = xs - lr * gx, ys - lr * gy, zs - lr * gz
+            own = slice(g * S, min(T, g * S + S))
+            for n, s in zip(new, (xs, ys, zs)):
+                n[:, own] = s[:, P : P + own.stop - own.start]
+        state = new
+    return state
+
+
+@pytest.mark.parametrize("B,T,n_cycles", [(2, 4321, 500), (1, 8641, 250),
+                                          (1, 20000, 241)])
+def test_segmented_schedule_is_exact(B, T, n_cycles):
+    """The long-row plan's windows, halos and relaunches reproduce the
+    whole row's plain filter bit for bit (NaN past a window would show
+    wherever a halo is too short), masked tails and a last launch of fewer
+    than H cycles included.  This is the schedule the CUDA kernel runs; the
+    kernel's own arithmetic is held on the card below."""
+    ins = _long_inputs(B, T)
+    got = _windowed_plain(ins, 20.0, n_cycles)
+    want = fs.filter_sgd_plain(*ins, 20.0, n_cycles)
+    live = ins[6].sum(dim=1) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g[live], w[live])
 
 
 # The card's cases: every planned case above, the shapes earlier kernels
@@ -129,8 +245,49 @@ def test_filter_sgd_kernel_refuses_bad_input(cuda):
     ins = _inputs(2, 8, cuda)
     with pytest.raises(ValueError):
         fs.filter_sgd(*ins[:6], ins[6].double(), 20.0, 3)
-    with pytest.raises(ValueError):
-        fs.filter_sgd(*(_inputs(2, 5000, cuda)), 20.0, 1)
+    with pytest.raises(ValueError):  # a mask one step short of the planes
+        fs.filter_sgd(*ins[:6], ins[6][:, :7].contiguous(), 20.0, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [k for k in LONG_CASES if k[1] <= 20000])
+def test_filter_sgd_long_rows_match_plain(cuda, B, T):
+    """Rows longer than one block (and T = 4097, 4320 in one block) at 900
+    cycles: live rows within 2e-4 of the plain version, masked tails and
+    all-masked rows equal to x0 exactly, ceil(900 / 240) launches for a
+    segmented row."""
+    ins = _long_inputs(B, T, cuda)
+    plan = fs.launch_plan(B, T)
+    before = fs.filter_sgd.launches
+    got = fs.filter_sgd(*ins, 20.0, 900)
+    torch.cuda.synchronize()
+    assert fs.filter_sgd.launches == before + (4 if len(plan) == 6 else 1)
+    want = fs.filter_sgd_plain(*ins, 20.0, 900)
+    live = ins[6].sum(dim=1) > 0
+    masked = (ins[6] == 0)[:, :, None].expand(-1, -1, 50)
+    for g, w, x0 in zip(got, want, ins[:3]):
+        torch.testing.assert_close(g[live], w[live], atol=2e-4, rtol=0)
+        assert torch.equal(g[masked], x0[masked])
+
+
+@pytest.mark.cuda
+def test_filter_sgd_long_row_keeps_the_arithmetic(cuda):
+    """One clip of 4000 steps, alone (one block of 17 warps) and padded to
+    5000 with its mask past 4000 (two segments, four launches): the live
+    output is the same to the bit, since every step runs the same
+    instructions in the same lane and slot."""
+    short = _long_inputs(1, 4000, cuda)
+    short[6].fill_(1.0)
+    padded = [torch.cat([a, torch.randn_like(a)[:, :1000]], dim=1) for a in short]
+    padded[6][:, 4000:] = 0.0
+    padded[5][:, 4000:] = 0.0
+    assert len(fs.launch_plan(1, 5000)) == 6 and len(fs.launch_plan(1, 4000)) == 4
+    a = fs.filter_sgd(*short, 20.0, 900)
+    b = fs.filter_sgd(*padded, 20.0, 900)
+    torch.cuda.synchronize()
+    for u, v, x0 in zip(a, b, padded[:3]):
+        assert torch.equal(u, v[:, :4000])
+        assert torch.equal(v[:, 4000:], x0[:, 4000:])
 
 
 def _robust_inputs(N, D, device, seed=0):

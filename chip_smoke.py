@@ -43,8 +43,8 @@ of three splits (39,300 frames; grouped videos of 300 to 8,700 frames, four
 longer than one filter block), and the port's ``process_dataset.main
 --lift`` ingests it with the native scanner in spawn workers, groups the
 utterances into videos and lifts them on the card (the long rows in
-segments).  Checked: every frame went through the native scanner, the xy
-pickles against the JSON path, every filter batch of
+segments).  Checked: every frame went through the native scanner, the val
+split's xy pickle against the JSON path, every filter batch of
 the path against its plain version, the lifting of the two shortest and
 two longest videos against the CPU path, finite r6d.
 
@@ -53,13 +53,25 @@ learnable categories and 384-wide sentence embeddings.  The LSTM topic
 classifier at the root CLI's defaults (hidden 1024, 10 layers, B=128,
 T=192) runs its eval forward unidirectional and bidirectional, held
 against the CPU's float32 and float64 evaluations (TF32 must miss the
-bound), and one Adam step held as the GAN steps are;
+bound), and one Adam step (5 of the 10 layers) held as the GAN steps are;
 ``classifier_main.main`` trains 2 epochs twice with the same seeds
 (identical losses, a strictly loading ``.pth``, the CSV) and
-``classifier_mlp_main.main`` 2 epochs; train and val rates with one epoch
+``classifier_mlp_main.main`` 2 epochs; train and val rates with one step
 traced; a small LSTM and the MLP must clear the JAX package's learning
 bars; remat at the grouped_r6d window (T=2112) must equal the plain run
 to the bit with a lower peak memory.
+
+Replay: the port's ``article_replay.main`` at ``--scale small`` (256 / 64 /
+64 clips) and full width, with the signal fixtures, fingers 1-3, the
+reference-config classifier for one epoch and the anomaly controls: the
+fixture made on the card (held against the same fixture made on the CPU),
+the raw smoke through ``process_dataset --lift`` at 60 cycles, both
+canonical configs trained and served, the classifiers, the finger trend.
+Checked: both kernels launched in the replay, the report complete (finite
+L1 on every split, val steps run, accuracies in [0, 1]), ``filter_sgd`` on
+every raw-smoke batch against its plain version, ``robust_loss`` held at
+the replay's residual shapes; a ``{"replay": ...}`` line carries the stage
+times and the table-shaped numbers.
 
 Prints one line per phase, then a JSON line describing each kernel (with
 its launch plan and, for the filter, the raw path's launches and long rows,
@@ -88,6 +100,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import (
+    article_replay,
     classifier_main,
     classifier_mlp_main,
     infer,
@@ -201,7 +214,7 @@ def filter_fp32_per_element_cycle():
     return per_cycle / fs.launch_plan(1, 1)[0]
 
 
-def hold_filter(ins, rows, label, fp32, reps=10):
+def hold_filter(ins, rows, label, fp32, reps=10, n_cycles=N_CYCLES):
     """filter_sgd's wrapper against its plain version on the card, on the
     first ``rows`` rows of ``ins`` (the rest are the all-masked padding of
     a pow2 batch, which the plain version makes NaN); the masked tails of
@@ -209,27 +222,27 @@ def hold_filter(ins, rows, label, fp32, reps=10):
     per element and cycle, for the issue floor.  Returns the measured row."""
     B, T = ins[-1].shape
     before = fs.filter_sgd.launches
-    got = fs.filter_sgd(*ins, LR, N_CYCLES)
+    got = fs.filter_sgd(*ins, LR, n_cycles)
     launches = fs.filter_sgd.launches - before
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    want = fs.filter_sgd_plain(*ins, LR, N_CYCLES)
+    want = fs.filter_sgd_plain(*ins, LR, n_cycles)
     t1.record()
     torch.cuda.synchronize()
     err = max(float((g[:rows] - w[:rows]).abs().max()) for g, w in zip(got, want))
     masked = (ins[-1][:rows] == 0)[:, :, None].expand(-1, -1, 50)
     tails_exact = all(torch.equal(g[:rows][masked], x[:rows][masked])
                       for g, x in zip(got, ins[:3]))
-    ms = cuda_ms(lambda: fs.filter_sgd(*ins, LR, N_CYCLES), reps=reps)
+    ms = cuda_ms(lambda: fs.filter_sgd(*ins, LR, n_cycles), reps=reps)
     elems = B * T * 50
     live = int(ins[-1].sum()) * 50  # the mask sum x 50 joints
     byte_s = (fs.BYTES_PER_ELEMENT * elems + 4 * B * T) / PEAK_BYTES
-    flop_s = fs.FLOPS_PER_ELEMENT_CYCLE * elems * N_CYCLES / PEAK_FP32_FLOPS
-    live_flop_s = fs.FLOPS_PER_ELEMENT_CYCLE * live * N_CYCLES / PEAK_FP32_FLOPS
-    instr = fp32 * N_CYCLES / PEAK_FP32_INSTR
+    flop_s = fs.FLOPS_PER_ELEMENT_CYCLE * elems * n_cycles / PEAK_FP32_FLOPS
+    live_flop_s = fs.FLOPS_PER_ELEMENT_CYCLE * live * n_cycles / PEAK_FP32_FLOPS
+    instr = fp32 * n_cycles / PEAK_FP32_INSTR
     row = {
-        "inputs": label, "B": B, "T": T, "n_cycles": N_CYCLES,
+        "inputs": label, "B": B, "T": T, "n_cycles": n_cycles,
         "launch_plan": dict(zip("KLWRGH", fs.launch_plan(B, T))), "launches": launches,
         "max_abs_err": err, "masked_tails_exact": tails_exact,
         "ms": ms, "plain_ms": t0.elapsed_time(t1), "bound_ms": 1e3 * max(flop_s, byte_s),
@@ -278,6 +291,9 @@ def kernel_phase(clips, fp32):
 RAW_VIDEOS = {"train": [29, 17, 12, 5, 2, 1], "val": [15, 9, 3, 1], "test": [22, 9, 4, 2]}
 RAW_UTT_FRAMES = 300
 NATIVE_RTOL = 1e-6  # the native scanner's float32 parse (tests/test_native_runtime.py)
+# the split whose xy the JSON path reads again (8,400 frames; all three
+# splits took 17.5-23.7 s, cut to keep the script's time with the replay phase)
+RAW_JSON_SPLIT = "val"
 
 
 def raw_xy_json(root, split):
@@ -325,7 +341,7 @@ def raw_phase(fp32):
     """The raw-data entry on the card: a seeded OpenPose tree of three splits
     (``RAW_VIDEOS``) through the port's ``process_dataset.main --lift`` at
     900 cycles, counts at 0 just before.  Checked: every frame went through
-    the native scanner; the xy pickles against the JSON path (rtol 1e-6);
+    the native scanner; the val xy pickle against the JSON path (rtol 1e-6);
     every filter
     batch of the path against its plain version (the long rows too); the
     lifting of the two shortest and two longest videos against the port's
@@ -370,7 +386,7 @@ def raw_phase(fp32):
         feats, xyz = {}, {}
         for split in RAW_VIDEOS:
             feats[split] = io.load_binary(os.path.join(data_dir, f"xy_{split}.pkl"))
-            json_xy = raw_xy_json(root, split)
+            json_xy = raw_xy_json(root, split) if split == RAW_JSON_SPLIT else feats[split]
             if len(json_xy) != len(feats[split]) or not all(
                     np.allclose(a, b, rtol=NATIVE_RTOL, atol=0)
                     for a, b in zip(feats[split], json_xy)):
@@ -382,8 +398,10 @@ def raw_phase(fp32):
                 raise AssertionError(f"{split}: r6d is not finite (T, 288) per video")
         json_s = time.perf_counter() - t0
         native_rate, json_rate = parse_rates(root)
-        log(f"raw xy: native within rtol {NATIVE_RTOL} of the JSON path ({n_frames} frames "
-            f"read and parsed again in one process in {json_s:.1f} s), r6d finite (T, 288); "
+        json_frames = RAW_UTT_FRAMES * sum(RAW_VIDEOS[RAW_JSON_SPLIT])
+        log(f"raw xy: native within rtol {NATIVE_RTOL} of the JSON path ({RAW_JSON_SPLIT}: "
+            f"{json_frames} frames read and parsed again in one process in {json_s:.1f} s), "
+            f"r6d finite (T, 288); "
             f"parsing alone, one process: native {native_rate:.0f} frames/s, JSON "
             f"{json_rate:.0f} frames/s")
 
@@ -456,6 +474,9 @@ def _excess(got, want, tol, cols):
     return float(err.max()), float((err / (atol + rtol * want.abs()[:, cols])).max())
 
 
+_RETRIED_HOLDS = 0  # robust holds in a row that needed more than one profiler session
+
+
 def hold_robust(N, D, rng, reps=20):
     """The robust-loss kernel against its plain version on the card: loss
     and dx against ``robust_lossfun_plain`` and its autograd.  The columns
@@ -483,12 +504,23 @@ def hold_robust(N, D, rng, reps=20):
     # kernel's time is its device span under the profiler; the wrapper's
     # time between two events, host-bound at the small shapes, goes beside it
     wrapper_ms = cuda_ms(lambda: rl.robust_loss_and_dx(x, alpha, c), reps=reps)
-    _, by_name, _ = profiled(lambda: [rl.robust_loss_and_dx(x, alpha, c)
-                                      for _ in range(reps)])
-    spans = [v for k, v in by_name.items() if "robust_loss_kernel" in k]
-    if not spans:
-        raise AssertionError("the profiler saw no robust_loss_kernel span: "
-                             f"{sorted(by_name)}")
+    # a session of torch.profiler on this card now and then reports no CUDA
+    # kernel at all (H100, torch 2.11): up to three sessions, and a second
+    # hold in a row that needs more than one fails the run
+    global _RETRIED_HOLDS
+    for sessions in range(1, 4):
+        _, by_name, _ = profiled(lambda: [rl.robust_loss_and_dx(x, alpha, c)
+                                          for _ in range(reps)])
+        spans = [v for k, v in by_name.items() if "robust_loss_kernel" in k]
+        if spans:
+            break
+    else:
+        raise AssertionError("in three profiler sessions none saw a robust_loss_kernel "
+                             f"span: {sorted(by_name)}")
+    _RETRIED_HOLDS = _RETRIED_HOLDS + 1 if sessions > 1 else 0
+    if _RETRIED_HOLDS > 1:
+        raise AssertionError(f"two robust_loss holds in a row needed more than one profiler "
+                             f"session (this one {sessions}) at {(N, D)}")
     ms = 1e3 * sum(spans) / reps
     plain_ms = cuda_ms(plain, reps=3)
     byte_s = (rl.BYTES_PER_ELEMENT * N * D + 8 * D) / PEAK_BYTES
@@ -499,7 +531,7 @@ def hold_robust(N, D, rng, reps=20):
         "ulp_columns": {"loss_abs_err": u_loss, "loss_err_over_tol": ux_loss,
                         "dx_abs_err": u_dx, "dx_err_over_tol": ux_dx},
         "launch_plan": {"path": rl.launch_path(x), "grid": rl.launch_grid(N, D)},
-        "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "ms": ms, "profiler_sessions": sessions, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(byte_s, flop_s),
         "bound_by": "bytes" if byte_s >= flop_s else "operations",
     }
@@ -1229,6 +1261,9 @@ CLS_TRAIN_CLIPS = 512  # 4 train steps an epoch at B=128; val 256 clips, 2 steps
 CLS_EPOCHS = 2
 CLS_CPU_ROWS = 16  # rows of the card's B=128 forward also evaluated on the CPU
 CLS_STEP_BATCH = 4  # the step check's batch (at full width)
+# the step check's depth: 5 of the 10 layers (the CPU's float64 step of all
+# ten took 26-44 s, cut to keep the script's time with the replay phase)
+CLS_STEP_LAYERS = 5
 # the card's float32 logits may be CLS_FWD_FACTOR times as far from a
 # float64 evaluation as the CPU's float32 ones, and no further; TF32 must
 # land beyond that
@@ -1319,16 +1354,17 @@ def _cls_one_step(net, x, y):
 
 
 def cls_step(X, Y):
-    """One full-width unidirectional step from the seeded weights on the
-    card, on the CPU and on the CPU in float64, held as the GAN steps are."""
+    """One full-width unidirectional step (``CLS_STEP_LAYERS`` deep) from the
+    seeded weights on the card, on the CPU and on the CPU in float64, held
+    as the GAN steps are."""
     x, y = X[:CLS_STEP_BATCH], np.asarray(Y[:CLS_STEP_BATCH], np.int64)
-    base = clf_models.build_classifier("lstm", device="cpu", dropout=0.0,
-                                       **_lstm_kwargs(X.shape[-1], False))
+    base = clf_models.build_classifier("lstm", device="cpu", dropout=0.0, **_lstm_kwargs(
+        X.shape[-1], False, num_layers=CLS_STEP_LAYERS))
     card, cpu, ref = (_cls_one_step(copy.deepcopy(base).to(device=d, dtype=t), x, y)
                       for d, t in (("cuda", torch.float32), ("cpu", torch.float32),
                                    ("cpu", torch.float64)))
-    return hold_step({"model": "ClassifLSTM", "step": "Adam", "batch": CLS_STEP_BATCH},
-                     card, cpu, ref, CLS_LR)
+    return hold_step({"model": "ClassifLSTM", "step": "Adam", "batch": CLS_STEP_BATCH,
+                      "layers": CLS_STEP_LAYERS}, card, cpu, ref, CLS_LR)
 
 
 def _cls_metrics(models_dir):
@@ -1393,7 +1429,7 @@ def cls_cli(tmp, data_dir, X):
 
 def cls_rates(X, Y, Xv, Yv):
     """Steps/s and frames/s of train and val epochs at the CLI's defaults,
-    resident, with the peak memory of training; one train epoch traced."""
+    resident, with the peak memory of training; one train step traced."""
     net = clf_models.build_classifier("lstm", device="cuda",
                                       **_lstm_kwargs(X.shape[-1], False, dropout=0.1))
     tr = clf_train.ClassifierTrainer(net)
@@ -1417,9 +1453,11 @@ def cls_rates(X, Y, Xv, Yv):
             f"{steps * CLS_BATCH * X.shape[1] / dt:.1f} frames/s, "
             f"{dt / steps * 1e3:.1f} ms a step; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log_trace(f"one classifier train epoch, {len(X) // CLS_BATCH} steps of B={CLS_BATCH} "
-              "(resident)", *profiled(lambda: tr.train_epoch_resident(
-                  dX, dY, order, CLS_BATCH)), "RNN")
+    # one step traced, not the epoch: the profiler's host cost grows with the
+    # RNN's many small kernels
+    log_trace(f"one classifier train step of B={CLS_BATCH} (resident)",
+              *profiled(lambda: tr.train_epoch_resident(dX, dY, order[:CLS_BATCH],
+                                                        CLS_BATCH)), "RNN")
 
 
 def cls_learns(tmp):
@@ -1549,6 +1587,219 @@ def classifier_phase():
             log(f"classifier {name}: {time.perf_counter() - t0:.1f} s")
 
 
+# replay phase: the port's article replay at --scale small, full width
+# Batches of 128 (GAN) and 64 (classifiers), not the replay's 256 and 128:
+# the small scale's 64 val windows fill no half batch of 128 and no val batch
+# of 128, so at the defaults no val step would run (every best val 0, every
+# accuracy 0; the reference's integer division).  Widths are the defaults.
+REPLAY_ARGS = ["--scale", "small", "--batch_size", "128", "--classifier_batch", "64",
+               "--epochs", "4", "--finger_epochs", "4", "--classifier_epochs", "10",
+               "--signal_fixture", "--finger_signal", "--fingers", "1,2,3",
+               "--reference_classifier", "--reference_classifier_epochs", "1",
+               "--anomaly_controls", "--device", "cuda"]
+REPLAY_RAW_CYCLES = 60  # the replay's raw smoke (article_replay.stage_raw_smoke)
+REPLAY_RAW_PARTITIONS = 2
+ARTICLE_BATCH = 256  # the replay's default --batch_size, the article's
+FIXTURE_ATOL = {"r6d_": 1e-4, "xyz_": 1e-5}  # test_synthetic_dataset_matches_jax
+
+
+def replay_robust_shapes():
+    """The (N, T * D_out) residuals robust_loss sees in the replay phase: the
+    G and val steps of v2+text (K = 1) and of each K of the sweep, plus the
+    article's batch and the last partial batch of an article-scale epoch
+    (which the trainer drops)."""
+    args = article_replay.build_parser().parse_args(REPLAY_ARGS)
+    ks = article_replay._parse_fingers(args.fingers)
+    shapes = {(n, WINDOW_T * 24 * k) for k in ks
+              for n in (args.batch_size, args.batch_size // 2)}
+    partial = article_replay.SCALES["article"]["train"] % ARTICLE_BATCH
+    return sorted(shapes | {(ARTICLE_BATCH, WINDOW_T * 24), (partial, WINDOW_T * 24)})
+
+
+def hold_fixture(card_dir, tmp, fixture):
+    """The replay's fixture made on the card against the same fixture made
+    on the CPU (``fixture``: the report's entry for it): r6d within 1e-4,
+    xyz within 1e-5, everything else equal.  Returns the largest r6d and xyz
+    differences, and where each lies."""
+    cpu_dir = os.path.join(tmp, "fixture_cpu")
+    synthetic.make_r6d_dataset(cpu_dir, split_counts=fixture["counts"], seed=7,
+                               save_image_feats=True, ik_roundtrip=True,
+                               categ_signal=fixture["categ_signal"],
+                               finger_signal=fixture["finger_signal"], device="cpu")
+    names = sorted(f for f in os.listdir(card_dir) if f.endswith(".pkl"))
+    if names != sorted(os.listdir(cpu_dir)):
+        raise AssertionError(f"fixture files differ: {names} vs {sorted(os.listdir(cpu_dir))}")
+    worst = {"r6d_": 0.0, "xyz_": 0.0}
+    where = {}
+    for name in names:
+        card, cpu = (io.load_binary(os.path.join(d, name)) for d in (card_dir, cpu_dir))
+        if len(card) != len(cpu):
+            raise AssertionError(f"{name}: {len(card)} entries on the card, {len(cpu)} on the CPU")
+        kind = name[:4]
+        for clip, (a, b) in enumerate(zip(card, cpu)):
+            a, b = np.asarray(a), np.asarray(b)
+            if a.shape != b.shape:
+                raise AssertionError(f"{name}: shapes {a.shape} and {b.shape}")
+            if kind in FIXTURE_ATOL:
+                err = np.abs(a - b)
+                if err.max() > worst[kind]:
+                    frame, col = np.unravel_index(int(err.argmax()), err.shape)
+                    worst[kind] = float(err.max())
+                    where[kind] = {"file": name, "clip": clip, "frame": int(frame),
+                                   "column": int(col), "cpu": float(b[frame, col]),
+                                   "card": float(a[frame, col])}
+            elif not np.array_equal(a, b):
+                raise AssertionError(f"{name}: the card's fixture differs from the CPU's")
+    if not all(worst[k] <= FIXTURE_ATOL[k] for k in worst):
+        raise AssertionError(f"fixture on the card vs the CPU: {worst} over {FIXTURE_ATOL} "
+                             f"at {where}")
+    return worst, where
+
+
+def check_replay_report(report):
+    """Complete, with finite L1 on every split of both configurations and of
+    each K, and accuracies in [0, 1]."""
+    bad = []
+    if not (report.get("completed") and report.get("core_completed")):
+        bad.append("not completed")
+    for name in (c["name"] for c in article_replay.CONFIGS):
+        l1 = report["configs"][name]["inference"]["L1"]
+        if sorted(l1) != ["test", "train", "val"] or not all(map(np.isfinite, l1.values())):
+            bad.append(f"{name} L1 {l1}")
+    for k in article_replay._parse_fingers(REPLAY_ARGS[REPLAY_ARGS.index("--fingers") + 1]):
+        l1 = report["finger_trend"][str(k)]["inference"]["L1"]
+        if sorted(l1) != ["test", "val"] or not all(map(np.isfinite, l1.values())):
+            bad.append(f"K={k} L1 {l1}")
+    cls = report["classifier"]
+    accs = {key: cls[key]["best_val_acc"] for key in (
+        "ground_truth_r6d", "enhanced_r6d", "enhanced_r6d_reference_config", "text_mlp")}
+    accs.update({f"control {key}": v["best_val_acc"]
+                 for key, v in cls["anomaly_controls"].items() if key != "explanation"})
+    if len(accs) != 8 or not all(0.0 <= a <= 1.0 for a in accs.values()):
+        bad.append(f"accuracies {accs}")
+    # the val steps ran: a val epoch of no batch reads 0
+    best = [e["train"]["best_val"] for e in (*report["configs"].values(),
+                                             *report["finger_trend"].values())]
+    if not all(np.isfinite(b) and b > 0 for b in best):
+        bad.append(f"best val losses {best}")
+    if not 0 < max(accs.values()):
+        bad.append(f"no classifier classified a val window: {accs}")
+    if bad:
+        raise AssertionError(f"the replay's report is incomplete: {bad}")
+    return accs
+
+
+def replay_phase(fp32, robust_rows):
+    """The port's article replay on the card at ``--scale small`` (256 / 64 /
+    64 clips), full width (generators 256 wide, the replay's 256x2
+    classifier, the reference classifier 1024x10 bidirectional for one
+    epoch), with the signal fixtures, fingers 1-3 and the anomaly controls;
+    both kernels' counts at 0 just before.  Checked: the card's fixture
+    against the CPU's; the report; ``filter_sgd`` on every raw-smoke batch
+    with that batch's own inputs at 60 cycles; that every shape the replay
+    launched ``robust_loss`` at is among ``robust_rows``, the kernel held
+    against its plain version at ``replay_robust_shapes()``.  Returns each
+    kernel's replay entries."""
+    shapes = set()
+    launch = rl.robust_loss_and_dx
+
+    def recording(x, alpha, scale):
+        shapes.add(tuple(x.shape))
+        return launch(x, alpha, scale)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replay_") as tmp:
+        work, out = os.path.join(tmp, "work"), os.path.join(tmp, "replay.json")
+        args = article_replay.build_parser().parse_args(
+            REPLAY_ARGS + ["--work_dir", work, "--out", out])
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the CLIs write root.pkl, bone_len.pkl and GT_predY.csv here
+        rl.robust_loss_and_dx = recording
+        try:
+            fs.filter_sgd.launches = 0  # counts of the replay start here
+            rl.robust_lossfun.launches = 0
+            t0 = time.perf_counter()
+            report = article_replay.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"filter_sgd": fs.filter_sgd.launches,
+                        "robust_loss": rl.robust_lossfun.launches}
+        finally:
+            rl.robust_loss_and_dx = launch
+            os.chdir(cwd)
+        log(f"replay: {wall:.1f} s, launches {launches}, robust_loss shapes {sorted(shapes)}")
+        if not all(launches.values()):
+            raise AssertionError(f"a kernel of the replay path never launched: {launches}")
+        accs = check_replay_report(report)
+
+        t0 = time.perf_counter()
+        fixture_err, fixture_worst = hold_fixture(os.path.join(work, "video_data"), tmp,
+                                                  report["fixture"])
+        log(f"replay fixture card vs CPU: max |r6d| {fixture_err['r6d_']:.3e}, max |xyz| "
+            f"{fixture_err['xyz_']:.3e}, everything else equal "
+            f"({time.perf_counter() - t0:.1f} s); worst entries {json.dumps(fixture_worst)}")
+        raw_dir = os.path.join(work, "raw_processed")
+        filter_rows = []
+        for split in ("train", "val", "test"):
+            feats = io.load_binary(os.path.join(raw_dir, f"xy_{split}.pkl"))
+            for tb, chunk in raw_batches(feats, REPLAY_RAW_PARTITIONS):
+                kps, masks, noises = (torch.from_numpy(a).to("cuda")
+                                      for a in engine._pack(chunk, tb))
+                filter_rows.append(hold_filter(
+                    engine._init_core(kps, masks, noises) + (masks,), len(chunk),
+                    "replay raw batch", fp32, reps=20, n_cycles=REPLAY_RAW_CYCLES))
+        held = {(r["N"], r["D"]) for r in robust_rows}
+        if not shapes:
+            raise AssertionError("no robust_loss call of the replay was recorded: the trainer "
+                                 "no longer reaches rl.robust_loss_and_dx")
+        if not shapes <= held:
+            raise AssertionError(f"robust_loss ran at shapes never held: {shapes - held}")
+        held_launches = sum(r["launches"] for r in filter_rows)
+        if held_launches != launches["filter_sgd"]:
+            raise AssertionError(f"the raw-smoke batches held launch filter_sgd {held_launches} "
+                                 f"times, the replay {launches['filter_sgd']}")
+
+    summary = {
+        "scale": report["scale"], "wall_s": wall, "launches": launches,
+        "stages_s": {
+            "raw_smoke": report["raw_pipeline_smoke"]["wall_s"],
+            "fixture": report["fixture"]["wall_s"],
+            **{f"train {k}": e["train"]["wall_s"] for k, e in report["configs"].items()},
+            **{f"infer {k}": sum(e["inference"]["wall_s"].values())
+               for k, e in report["configs"].items()},
+            **{f"classifier {k}": v["wall_s"] for k, v in report["classifier"].items()
+               if isinstance(v, dict) and "wall_s" in v},
+            **{f"classifier control {k}": v["wall_s"]
+               for k, v in report["classifier"]["anomaly_controls"].items()
+               if isinstance(v, dict)},
+            **{f"trend K={k} train": e["train"]["wall_s"]
+               for k, e in report["finger_trend"].items()},
+            **{f"trend K={k} infer": sum(e["inference"]["wall_s"].values())
+               for k, e in report["finger_trend"].items()},
+        },
+        "L1": {k: e["inference"]["L1"] for k, e in report["configs"].items()},
+        "best_val": {k: e["train"]["best_val"] for k, e in report["configs"].items()},
+        "classifier_val_acc": accs,
+        "classifier_windows": report["classifier"]["windows"],
+        "finger_trend": report["finger_trend_vs_article"],
+        "fixture_max_abs": fixture_err,
+        "fixture_worst_entries": fixture_worst,
+    }
+    print(json.dumps({"replay": summary}), flush=True)
+    keep = ("B", "T", "n_cycles", "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    return {
+        "filter_sgd": {"launches_replay": launches["filter_sgd"],
+                       "replay_held": [{k: r[k] for k in keep} for r in filter_rows]},
+        "robust_loss": {"launches_replay": launches["robust_loss"],
+                        "replay_shapes": sorted(shapes),
+                        "replay_held": [{k: r[k] for k in keep if k in r} | {
+                            "N": r["N"], "D": r["D"],
+                            "max_err_over_tol": max(r["loss_err_over_tol"],
+                                                    r["dx_err_over_tol"])}
+                            for r in robust_rows]},
+    }
+
+
 def profiled(fn):
     """Run ``fn`` under torch.profiler: (wall s, {kernel name: device s},
     device busy s).  The busy time is the union of the CUDA kernels' spans:
@@ -1625,6 +1876,8 @@ def main() -> int:
 
     clips = synthetic_clips(np.random.RandomState(SEED), N_CLIPS)
     robust = robust_kernel_phase()
+    rng = np.random.RandomState(SEED + 2)
+    replay_robust = [hold_robust(N, D, rng) for N, D in replay_robust_shapes()]
     prod, path = kernel_phase(clips, fp32)
     launches, xyz, r6d = path_phase(clips)
     t0 = time.perf_counter()
@@ -1637,6 +1890,9 @@ def main() -> int:
     t0 = time.perf_counter()
     classifier_phase()
     log(f"classifier phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    replay = replay_phase(fp32, replay_robust)
+    log(f"replay phase: {time.perf_counter() - t0:.1f} s")
 
     main_row = prod[-1]  # B=128, T=1920: the longest production bucket
     robust_row = robust[0]  # (128, 48384): the G step's residual
@@ -1646,7 +1902,8 @@ def main() -> int:
         "source": "multimodal_hand_pose_enhancement_for_sign_language_tpu_torch/csrc/filter_sgd.cu",
         "replaces": "multimodal_hand_pose_enhancement_for_sign_language_tpu/ops/pallas_kernels.py:203",
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in prod + path + raw),
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           prod + path + raw + replay["filter_sgd"]["replay_held"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -1665,6 +1922,8 @@ def main() -> int:
         "long_rows": [{k: r[k] for k in ("B", "T", "launch_plan", "launches", "ms",
                                          "bound_ms", "max_abs_err")}
                       for r in raw if len(r["launch_plan"]) == 6],
+        # the article replay (its raw smoke at 60 cycles), its counts read alone
+        **replay["filter_sgd"],
     }, {
         "name": "robust_loss",
         "route": "cuda",
@@ -1674,15 +1933,20 @@ def main() -> int:
         # the largest difference in loss or dx over the held shapes; the
         # values themselves reach 1e13 there (c down to 1e-3), and each is
         # held relative to its size (loss/dx_err_over_tol in the rows above)
-        "max_abs_err": max(r["max_abs_err"] for r in robust),
-        "max_err_over_tol": max(max(r["loss_err_over_tol"], r["dx_err_over_tol"])
-                                for r in robust),
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           robust + replay["robust_loss"]["replay_held"]),
+        "max_err_over_tol": max([max(r["loss_err_over_tol"], r["dx_err_over_tol"])
+                                 for r in robust]
+                                + [r["max_err_over_tol"]
+                                   for r in replay["robust_loss"]["replay_held"]]),
         "ms": robust_row["ms"],
         "plain_ms": robust_row["plain_ms"],
         "bound_ms": robust_row["bound_ms"],
         "bound_by": robust_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes rho and its dx
         "launch_plan": robust_row["launch_plan"],
+        # the article replay (v2+text and the finger sweep), its counts read alone
+        **replay["robust_loss"],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -126,8 +126,50 @@ def _write_all(files) -> None:
             f.write(text)
 
 
-# width of the per-frame ResNet image features (b2h's conditioning input)
-IMAGE_DIM = 2000
+# --- finger_signal chain constants (see make_r6d_dataset docstring) ---
+_N_HAND_AA = 126  # 42 hand bones x 3 aa channels (cols 18..144)
+_CHAIN_RHO = 0.985  # per-channel-step correlation: info decays ~rho^d
+_CHAIN_ALPHA = 0.6  # innovation share that is text-predictable
+
+
+def _finger_chain(frng, T):
+    """One clip's hand-channel Markov chain (T, 126) plus the clip-level
+    latent parameters theta (27,) that the text embeddings carry.
+
+    All series have marginal variance ~0.5 (unit-amplitude sinusoids
+    with uniform random phase), so the chain is variance-stationary:
+    the conditional std of channel j given the nearest visible channel
+    at distance d is sqrt(1 - rho^(2d)) of its marginal std -- the
+    monotone-in-d error floor the finger-masking trend measures."""
+    t = np.arange(T, dtype=np.float64)[:, None]
+    a = frng.uniform(0.7, 1.3, size=6)
+    w = frng.uniform(0.05, 0.45, size=6)
+    p = frng.uniform(0, 2 * np.pi, size=6)
+    wu = frng.uniform(0.1, 0.5)
+    pu = frng.uniform(0, 2 * np.pi)
+    we = frng.uniform(0.05, 0.6, size=_N_HAND_AA)
+    pe = frng.uniform(0, 2 * np.pi, size=_N_HAND_AA)
+    z = a * np.sin(w * t + p)  # (T, 6) smooth per-clip latent driver
+    s = z.sum(axis=1) / np.sqrt(6.0)  # chain root, var ~ 0.5
+    j = np.arange(_N_HAND_AA, dtype=np.float64)
+    u = np.sin(wu * t + pu + 0.35 * j)  # text-predictable innovations
+    eta = np.sin(we * t + pe)  # private per-channel noise
+    innov = _CHAIN_ALPHA * u + np.sqrt(1.0 - _CHAIN_ALPHA**2) * eta
+    c = np.sqrt(1.0 - _CHAIN_RHO**2)
+    S = np.empty((T, _N_HAND_AA))
+    for jj in range(_N_HAND_AA):
+        s = _CHAIN_RHO * s + c * innov[:, jj]
+        S[:, jj] = s
+    theta = np.concatenate(
+        [
+            (a - 1.0) / 0.3,
+            (w - 0.25) / 0.2,
+            np.sin(p),
+            np.cos(p),
+            [(wu - 0.3) / 0.2, np.sin(pu), np.cos(pu)],
+        ]
+    )
+    return S, theta
 
 
 def make_r6d_dataset(
@@ -136,8 +178,12 @@ def make_r6d_dataset(
     t_range: tuple[int, int] = (40, 240),
     seed: int = 0,
     text_dim: int = 512,
+    image_dim: int = 2000,
+    split_counts: dict | None = None,
     save_image_feats: bool = True,
+    ik_roundtrip: bool = True,
     categ_signal: bool = False,
+    finger_signal: bool = False,
     device="cuda",
 ):
     """Write processed pickles for all three splits under `data_dir`.
@@ -146,8 +192,12 @@ def make_r6d_dataset(
     run through FK to xyz, back through IK to aa, then to r6d — matching
     what the real pipeline produces.
 
-    `save_image_feats=False` skips the (T, IMAGE_DIM) per-clip ResNet-feature
-    pickles.
+    `split_counts` overrides the per-split clip counts (e.g. the article
+    scale {'train': 31128, 'val': 1741, 'test': 2322}, §5 of the PDF);
+    `save_image_feats=False` skips the (T, image_dim) per-clip
+    ResNet-feature pickles, which dominate disk at article scale.
+    `ik_roundtrip=False` skips the IK pass: the r6d then comes from the
+    drawn angles themselves (xyz == FK(aa) holds either way).
 
     By default the categoryID labels (`1 + i % 9`) carry no information
     about the pose/text content (so classifier accuracy on the fixture is
@@ -162,7 +212,27 @@ def make_r6d_dataset(
     default-False path consumes the RNG identically with or without this
     flag, so existing fixtures stay byte-identical.
 
-    The FK, IK and r6d conversions run on ``device``.
+    `finger_signal=True` gives the HAND channels the information
+    structure the incremental finger-masking experiment (article Table 2,
+    launch_exp_incr_fingers.sh:10) needs to show its monotone
+    degradation: each hand aa-channel j carries a stationary Markov chain
+    over the channel index,
+
+        s_j(t) = rho * s_{j-1}(t) + sqrt(1-rho^2) * innov_j(t),
+
+    rooted in a per-clip smooth latent whose parameters are also linearly
+    embedded into the sentence embeddings (so text conditioning helps),
+    with innovations split between a text-predictable component and
+    private per-channel noise.  arm_wh2fingerK masks the last 4K hand
+    bones, and the chain's information decays geometrically with distance
+    from the nearest visible channel, so the best masked-channel L1 rises
+    strictly with K: Table 2's shape.  Hand-channel amplitudes keep
+    per-bone axis-angle norms under pi (the aa -> r6d map is injective
+    only there).  It draws only from side streams, so the other options'
+    fixtures stay byte-identical.
+
+    The FK, IK and r6d conversions run on ``device``; everything else is
+    numpy's alone, equal to the JAX package's for the same arguments.
     """
     os.makedirs(data_dir, exist_ok=True)
     rng = np.random.RandomState(seed)
@@ -171,7 +241,16 @@ def make_r6d_dataset(
 
     out = {}
     for split in SPLITS:
-        n = n_clips if split == "train" else max(2, n_clips // 2)
+        if split_counts is not None:
+            n = int(split_counts[split])
+        else:
+            n = n_clips if split == "train" else max(2, n_clips // 2)
+        frng = (
+            np.random.RandomState(seed * 1000003 + 9100 + SPLITS.index(split))
+            if finger_signal
+            else None
+        )
+        thetas = []
         aa_clips = []
         for i in range(n):
             T = int(rng.randint(*t_range))
@@ -180,6 +259,7 @@ def make_r6d_dataset(
                 np.linspace(0, 6, T)[:, None] + rng.uniform(0, 3, size=(1, 144))
             )
             clip = base + wob
+            csig = None
             if categ_signal:
                 # class k's signature: a per-class mean angular offset
                 # (readable at any timestep) plus a distinct per-frame
@@ -192,11 +272,26 @@ def make_r6d_dataset(
                 t = np.arange(T, dtype=np.float64)[:, None]
                 c = np.arange(144, dtype=np.float64)[None, :]
                 csig = 0.08 * k + 0.35 * np.sin(omega * t + 0.5 * c)
+            if finger_signal:
+                S, theta = _finger_chain(frng, T)
+                thetas.append(theta)
+                # hand channels (bones 6..47 -> aa cols 18..144): damped
+                # base/wob plus the chain; the arm channels (cols 0..18)
+                # keep the full class signature, so the classifier
+                # surrogate stays discriminative
+                clip[:, 18:] = (
+                    0.25 * base[:, 18:] + 0.5 * wob[:, 18:] + 0.8 * S
+                )
+                if csig is not None:
+                    csig = csig * np.concatenate(
+                        [np.ones(18), np.full(_N_HAND_AA, 0.35)]
+                    )[None, :]
+            if csig is not None:
                 clip = clip + csig
             aa_clips.append(clip.astype(np.float32))
         xyz = kinematics.aa_to_xyz(aa_clips, root, bone_len, device=device)
         # IK's canonical angles, as the real pipeline's xyz->aa produces them
-        aa_final = kinematics.xyz_to_aa(xyz, device=device)
+        aa_final = kinematics.xyz_to_aa(xyz, device=device) if ik_roundtrip else aa_clips
         r6d = rotations.aa_to_rot6d(aa_final, device=device)
         save_binary(r6d, os.path.join(data_dir, f"r6d_{split}.pkl"))
         save_binary(xyz, os.path.join(data_dir, f"xyz_{split}.pkl"))
@@ -210,6 +305,13 @@ def make_r6d_dataset(
             embeds = embeds + 2.0 * cents[
                 np.arange(n) % 9
             ].astype(np.float32)
+        if finger_signal:
+            # the chain's clip-level latent parameters ride in the text
+            # embeddings through a fixed projection (side-stream RNG), so
+            # text conditioning carries finger-channel information
+            proj = np.random.RandomState(seed + 5151).randn(27, text_dim)
+            proj /= np.sqrt(27.0)
+            embeds = embeds + 1.5 * (np.stack(thetas) @ proj).astype(np.float32)
         save_binary(embeds, os.path.join(data_dir, f"{split}_sentence_embeddings.pkl"))
         save_binary(
             np.tile(embeds.mean(axis=0), (n, 1)),
@@ -217,7 +319,7 @@ def make_r6d_dataset(
         )
         if save_image_feats:
             feats = [
-                rng.randn(c.shape[0], IMAGE_DIM).astype(np.float32)
+                rng.randn(c.shape[0], image_dim).astype(np.float32)
                 for c in r6d
             ]
             save_binary(

@@ -250,6 +250,28 @@ def test_filter_sgd_kernel_refuses_bad_input(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,live", [(4, 3), (1, 1)])
+def test_filter_sgd_replay_raw_smoke_batch_matches_plain(cuda, B, live):
+    """The article replay's raw smoke: 24-frame clips in the T = 64 bucket
+    (a batch of three padded to four, and one alone) at 60 cycles; live
+    steps within 2e-4 of the plain version, the masked tail of each row and
+    the padding row equal to x0 exactly."""
+    ins = _inputs(B, 64, cuda, live=live)
+    ins[6][:, 24:] = 0.0
+    ins[5] *= ins[6][:, :, None]
+    before = fs.filter_sgd.launches
+    got = fs.filter_sgd(*ins, 20.0, 60)
+    torch.cuda.synchronize()
+    assert fs.filter_sgd.launches == before + 1
+    want = fs.filter_sgd_plain(*ins, 20.0, 60)
+    masked = (ins[6][:live] == 0)[:, :, None].expand(-1, -1, 50)
+    for g, w, x0 in zip(got, want, ins[:3]):
+        torch.testing.assert_close(g[:live], w[:live], atol=2e-4, rtol=0)
+        assert torch.equal(g[:live][masked], x0[:live][masked])
+        assert torch.equal(g[live:], x0[live:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T", [k for k in LONG_CASES if k[1] <= 20000])
 def test_filter_sgd_long_rows_match_plain(cuda, B, T):
     """Rows longer than one block (and T = 4097, 4320 in one block) at 900
@@ -336,6 +358,9 @@ def _misaligned(x):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D,layout", [
     (128, 48384, "contiguous"), (64, 48384, "contiguous"), (7, 1000, "contiguous"),
+    # the article replay's v2+text residual at its batch of 256, the last
+    # partial batch of an article-scale epoch (31128 % 256), and K = 3
+    (256, 4608, "contiguous"), (152, 4608, "contiguous"), (256, 13824, "contiguous"),
     (1, 1, "contiguous"), (300, 257, "contiguous"), (7, 1000, "offset"),
     (7, 1000, "strided"),
 ])

@@ -94,7 +94,7 @@ def test_port_imports_and_loads_a_jax_checkpoint_without_jax(tmp_path):
                  "data.categories", "data.synthetic", "classifier_main",
                  "classifier_mlp_main", "data.openpose", "data.text", "data.video",
                  "data.datasets", "data.skeleton_preproc", "runtime.native",
-                 "process_dataset"):
+                 "process_dataset", "article_replay"):
         assert f"{PORT}.{name}" in info["modules"], name
     want = convert.generator_state_dict(variables)
     got = np.load(out)

@@ -73,6 +73,21 @@ every raw-smoke batch against its plain version, ``robust_loss`` held at
 the replay's residual shapes; a ``{"replay": ...}`` line carries the stage
 times and the table-shaped numbers.
 
+Featurizers: seeded random weights at the widths the JAX routes default to
+(MiniLM-L6 384x6, bert-base 768x12 at 512 tokens, CLIP ViT-B/32's text
+512x12 and vision 768x12 towers, ResNet-50), written by the port's
+``data/synthetic`` as local snapshots (config.json, a 30,522-token
+vocab.txt or a CLIP vocab.json / merges.txt, pytorch_model.bin) and a
+torchvision ``.pth``: ``data/text.obtain_embeddings`` for BERTsentence,
+BERTword and clip on seeded sentences, ``obtain_cropped_clips`` on seeded
+1280x720 frames and OpenPose hand keypoints, then ``obtain_feats_crops_resnet``
+and ``obtain_feats_crops_clip``, and ``process_dataset.main --vid_feats`` over
+a crops pickle.  Each output is held against the port's CPU path on the same
+weights at 2^-15 of its largest value (ResNet-50, where cuDNN breaks that,
+against a float64 CPU evaluation: at most twice the CPU's float32 error);
+bert-base under TF32 must miss the bound; rates of each tower.  Neither
+kernel lies on this path (its launch counts, read alone, are 0).
+
 Prints one line per phase, then a JSON line describing each kernel (with
 its launch plan and, for the filter, the raw path's launches and long rows,
 its bound over the live elements and
@@ -113,6 +128,9 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
     openpose,
     standardize,
     synthetic as synthetic,
+    text,
+    tokenizers,
+    video,
     windows,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import engine
@@ -121,7 +139,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.losses.robust 
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import (
     classifier as clf_models,
+    clip_vision,
     registry,
+    resnet as resnet_lib,
+    text_encoders,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
     build,
@@ -1800,6 +1821,261 @@ def replay_phase(fp32, robust_rows):
     }
 
 
+# featurizer phase: the towers at the widths the JAX routes default to,
+# seeded random weights written as local snapshots (the card's machine has
+# no transformers, safetensors or cv2)
+FEAT_REL_ATOL = FWD_REL_ATOL  # card vs CPU, relative to the largest output
+MINILM = dict(hidden_size=384, num_layers=6, num_heads=12, intermediate_size=1536)
+BERT_BASE = dict(hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072)
+BERT_VOCAB = 30522
+N_SENTENCES = 16  # the last one runs past 512 tokens (BERTword truncates it)
+FEAT_FRAMES = (24, 16)  # two clips of How2Sign's 1280x720 frames
+FEAT_BATCH = 256
+RATE_FRAMES = 2048  # one clip through obtain_feats_crops_resnet: 4096 crops
+H2S_FRAMES = 10e6  # How2Sign's frames, about (PERF.md section 1)
+_WORDS = ("sign language hand hands arm arms the a an of to and in is it that you we they "
+          "i'm don't it's we'll can't how2sign asl signer video camera left right finger "
+          "fingers move moves moving point points up down over under café naïve résumé "
+          "3 12 2023 1,000 3.14 first second next then now today yesterday").split()
+
+
+def feat_sentences(rng):
+    """How2Sign-like sentences from a seed: 8 to 40 words with digits,
+    accents, contractions and punctuation; the last one over 512 tokens."""
+    out = []
+    for i in range(N_SENTENCES):
+        n = 700 if i == N_SENTENCES - 1 else rng.randint(8, 41)
+        words = [_WORDS[j] for j in rng.randint(0, len(_WORDS), n)]
+        words[0] = words[0].capitalize()
+        out.append(" ".join(words) + rng.choice([".", "?", "!", "..."]))
+    return out
+
+
+def feat_frames(rng, root):
+    """Seeded 1280x720 clips and one OpenPose JSON a frame with both hands'
+    keypoints near a drifting palm center (every fifth frame has no JSON:
+    the fallback center).  Returns (clips (T, 3, 720, 1280) uint8, ids)."""
+    clips, ids = [], []
+    for c, T in enumerate(FEAT_FRAMES):
+        sid = f"feat{c:07d}-1-rgb_front"
+        os.makedirs(os.path.join(root, sid))
+        clips.append(rng.randint(0, 256, size=(T, 3, 720, 1280), dtype=np.uint8))
+        for t in range(T):
+            if t % 5 == 4:
+                continue
+            people = {}
+            for hand, (x, y) in (("right", (300 + 20 * t, 500)), ("left", (1000, 80 + 9 * t))):
+                kp = np.zeros(63)
+                kp[0::3] = x + rng.uniform(-15, 15, 21)
+                kp[1::3] = y + rng.uniform(-15, 15, 21)
+                kp[2::3] = 0.9
+                people[f"hand_{hand}_keypoints_2d"] = kp.tolist()
+            with open(os.path.join(root, sid, f"{sid}_{t:012d}_keypoints.json"), "w") as f:
+                json.dump({"people": [people]}, f)
+        ids.append(sid)
+    return clips, ids
+
+
+def hold_feat(label, card, cpu):
+    """The card's output within FEAT_REL_ATOL of the CPU's largest value."""
+    card, cpu = (np.concatenate([np.asarray(a).reshape(-1) for a in x])
+                 for x in (card, cpu))
+    err, scale = float(np.abs(card - cpu).max()), float(np.abs(cpu).max())
+    row = {"max_abs_err": err, "max_abs_out": scale, "bound": FEAT_REL_ATOL * scale,
+           "rule": "relative"}
+    log(f"{label}: card vs CPU max abs {err:.3e} (max |out| {scale:.4g}, bound "
+        f"{row['bound']:.3e})")
+    return row
+
+
+def hold_resnet64(crops, pth, card, cpu):
+    """ResNet-50's features against a float64 CPU evaluation of the same
+    normalized crops: the card's error at most twice the CPU's float32 one."""
+    model = resnet_lib.load_resnet50(pth, device="cpu").double()
+    mean = torch.as_tensor(video.IMAGENET_MEAN)[:, None, None]
+    std = torch.as_tensor(video.IMAGENET_STD)[:, None, None]
+    ref = []
+    with torch.inference_mode():
+        for c in crops:
+            hands = [model(((torch.from_numpy(np.ascontiguousarray(c[..., j])).float() - mean)
+                            / std).double()).numpy() for j in (0, 1)]
+            ref.append(np.hstack(hands))
+    err_card = max(float(np.abs(a - r).max()) for a, r in zip(card, ref))
+    err_cpu = max(float(np.abs(a - r).max()) for a, r in zip(cpu, ref))
+    log(f"resnet features vs float64: card {err_card:.3e}, CPU {err_cpu:.3e} "
+        f"(ratio {err_card / err_cpu:.3f}, bound 2)")
+    return {"rule": "float64", "card_err_f64": err_card, "cpu_err_f64": err_cpu,
+            "ok": err_card <= 2 * err_cpu}
+
+
+def _timed(fn):
+    """(fn(), its wall seconds to a synchronized end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def feat_rates(snaps, pth, bert_tokens):
+    """Tower forwards on the card at float32 (cuda events, ms per batch) and
+    the rates they give; ResNet-50 also through its route on one clip."""
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.tokenizers import (
+        CLIPBPETokenizer,
+    )
+
+    gen = torch.Generator().manual_seed(SEED)
+    rates = {}
+    with torch.inference_mode(), infer.conv_matmul_precision("float32"):
+        for name, snap, B, T in (("minilm", snaps["BERTsentence"], FEAT_BATCH, bert_tokens),
+                                 ("bert_base_512", snaps["BERTword"], 64, 512)):
+            model = text_encoders.load_bert(snap, "cuda")
+            ids = torch.randint(1000, BERT_VOCAB, (B, T), generator=gen).cuda()
+            mask = torch.ones_like(ids)
+            ms = cuda_ms(lambda: model(ids, mask, output_hidden_states=True), 3)
+            rates[name] = {"B": B, "T": T, "ms": ms, "sentences_per_s": B / ms * 1e3}
+        tok = CLIPBPETokenizer.from_dir(snaps["clip"])
+        model = text_encoders.load_clip_text(snaps["clip"], tok.eos_token_id, "cuda")
+        ids = torch.randint(0, 49406, (FEAT_BATCH, 77), generator=gen).cuda()
+        ids[:, 40] = tok.eos_token_id
+        ms = cuda_ms(lambda: model(ids), 3)
+        rates["clip_text"] = {"B": FEAT_BATCH, "T": 77, "ms": ms,
+                              "sentences_per_s": FEAT_BATCH / ms * 1e3}
+        model = clip_vision.load_clip_vision(snaps["clip"], "cuda")
+        crops = torch.randint(0, 256, (FEAT_BATCH, 3, 120, 120), generator=gen).cuda()
+        px = clip_vision.clip_preprocess(crops, 224)
+        ms = cuda_ms(lambda: model(px), 3)
+        ms_pre = cuda_ms(lambda: model(clip_vision.clip_preprocess(crops, 224)), 3)
+        rates["clip_vision"] = {"B": FEAT_BATCH, "ms": ms, "ms_with_preprocess": ms_pre,
+                                "crops_per_s": FEAT_BATCH / ms_pre * 1e3}
+        model = resnet_lib.load_resnet50(pth, device="cuda")
+        x = torch.randn(FEAT_BATCH, 3, 120, 120, generator=gen).cuda()
+        ms = cuda_ms(lambda: model(x), 3)
+        rates["resnet50"] = {"B": FEAT_BATCH, "ms": ms, "crops_per_s": FEAT_BATCH / ms * 1e3}
+    clip = [np.random.RandomState(SEED).randint(0, 256, (RATE_FRAMES, 3, 120, 120, 2),
+                                                dtype=np.uint8)]
+    video.obtain_feats_crops_resnet(clip, pth, device="cuda")  # cuDNN's first choice
+    _, wall = _timed(lambda: video.obtain_feats_crops_resnet(clip, pth, device="cuda"))
+    route = 2 * RATE_FRAMES / wall
+    rates["resnet50"].update(route_crops_per_s=route, route_wall_s=wall,
+                             how2sign_hours=2 * H2S_FRAMES / route / 3600)
+    for name, r in rates.items():
+        log(f"rate {name}: " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                                         for k, v in r.items()))
+    return rates
+
+
+def featurizer_phase():
+    """The featurizers on the card at full width with seeded snapshots: the
+    three text methods through ``data/text.obtain_embeddings``, the hand crops
+    through ``obtain_cropped_clips`` and their ResNet-50 and CLIP features,
+    ``process_dataset.main --vid_feats`` over a crops pickle; every output
+    against the port's CPU path on the same weights (2^-15 of the largest
+    value; ResNet-50 against float64 where cuDNN breaks that), TF32 shown
+    to miss the bound; rates.  Neither kernel lies on this path: its counts
+    are read to show so."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 8)
+    rows = {}
+    fs.filter_sgd.launches = 0  # counts of the featurizer path start here
+    rl.robust_lossfun.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_feat_") as tmp:
+        t0 = time.perf_counter()
+        sentences = feat_sentences(rng)
+        ids = [f"sent{i:07d}-1-rgb_front" for i in range(N_SENTENCES)]
+        text_path = os.path.join(tmp, "train.text.id.en")
+        with open(text_path, "w") as f:
+            f.write("".join(f"{i} {s}\n" for i, s in zip(ids, sentences)))
+        minilm = synthetic.write_bert_snapshot(os.path.join(tmp, "minilm"), sentences,
+                                               vocab_size=BERT_VOCAB, seed=SEED, **MINILM)
+        snaps = {"BERTsentence": minilm,
+                 "BERTword": synthetic.write_bert_snapshot(
+                     os.path.join(tmp, "bert"), sentences, vocab_size=BERT_VOCAB,
+                     seed=SEED + 1, **BERT_BASE),
+                 "clip": synthetic.write_clip_snapshot(os.path.join(tmp, "clip"), sentences,
+                                                       n_merges=2000, seed=SEED + 2)}
+        pth = synthetic.write_resnet50_weights(os.path.join(tmp, "resnet50.pth"), seed=SEED + 3)
+        log(f"featurizer snapshots written in {time.perf_counter() - t0:.1f} s")
+
+        for method, snap in snaps.items():
+            card, wall = _timed(lambda: text.obtain_embeddings(
+                text_path, ids, method=method, weights_path=snap, device="cuda"))
+            cpu = text.obtain_embeddings(text_path, ids, method=method, weights_path=snap,
+                                         device="cpu")
+            if card.shape != cpu.shape or not np.isfinite(card).all():
+                raise AssertionError(f"{method}: card {card.shape}, CPU {cpu.shape}")
+            rows[method] = hold_feat(f"{method} {card.shape}", card, cpu) | {
+                "shape": list(card.shape), "route_wall_s": wall}
+
+        # TF32 on bert-base's last-four sum must miss the bound
+        tok = tokenizers.WordPieceTokenizer.from_dir(snaps["BERTword"])
+        enc = tok(sentences[:4], padding="max_length", max_length=512)
+        model = text_encoders.load_bert(snaps["BERTword"], "cuda")
+        ids_t, mask_t = (torch.from_numpy(enc[k]).cuda() for k in ("input_ids", "attention_mask"))
+        with torch.inference_mode(), infer.conv_matmul_precision("tensorfloat32"):
+            tf32 = sum(model(ids_t, mask_t, output_hidden_states=True)[1][-4:]).cpu().numpy()
+        cpu = text.obtain_embeddings(text_path, ids[:4], method="BERTword",
+                                     weights_path=snaps["BERTword"], device="cpu")
+        row = hold_feat("BERTword TF32", tf32, cpu)
+        if row["max_abs_err"] <= row["bound"]:
+            raise AssertionError(f"TF32 bert-base within the float32 bound: {row}")
+        rows["BERTword_tf32"] = row
+
+        json_root = os.path.join(tmp, "json")
+        frames, clip_ids = feat_frames(rng, json_root)
+        crops = video.obtain_cropped_clips(frames, json_root, clip_ids)
+        if [c.shape for c in crops] != [(T, 3, 120, 120, 2) for T in FEAT_FRAMES]:
+            raise AssertionError(f"crops {[c.shape for c in crops]}")
+        resnet_card, wall = _timed(lambda: video.obtain_feats_crops_resnet(
+            crops, pth, device="cuda"))
+        cpu = video.obtain_feats_crops_resnet(crops, pth, device="cpu")
+        row = hold_feat("resnet50 features", resnet_card, cpu) | {
+            "shape": [list(c.shape) for c in resnet_card], "route_wall_s": wall}
+        if row["max_abs_err"] > row["bound"]:
+            row |= hold_resnet64(crops, pth, resnet_card, cpu)
+        rows["resnet50"] = row
+        card, wall = _timed(lambda: video.obtain_feats_crops_clip(crops, snaps["clip"],
+                                                                  device="cuda"))
+        cpu = video.obtain_feats_crops_clip(crops, snaps["clip"], device="cpu")
+        rows["clip_image"] = hold_feat("clip image features", card, cpu) | {
+            "shape": [list(c.shape) for c in card], "route_wall_s": wall}
+
+        # the CLI: --vid_feats over a crops pickle (obtain_vid_feats; no cv2 here)
+        tree = os.path.join(tmp, "tree")
+        synthetic.make_openpose_tree(tree, n_videos=2, utts_per_video=1, frames=4, seed=SEED,
+                                     splits=("train",))
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        io.save_binary(crops, os.path.join(data_dir, "train_vid_crops.pkl"))
+        args = process_dataset.build_parser().parse_args(
+            ["--dataset_path", tree, "--data_dir", data_dir, "--vid_feats", "--resnet_weights",
+             pth, "--workers", "1", "--device", "cuda"])
+        t0 = time.perf_counter()
+        process_dataset.main(process_dataset.resolve_templates(args))
+        cli_s = time.perf_counter() - t0
+        got = io.load_binary(os.path.join(data_dir, "train_vid_feats.pkl"))
+        if [g.shape for g in got] != [(T, 2000) for T in FEAT_FRAMES] or any(
+                g.dtype != np.float32 for g in got):
+            raise AssertionError(f"process_dataset --vid_feats wrote {[g.shape for g in got]}")
+        rows["cli_vid_feats"] = hold_feat("process_dataset --vid_feats vs the route on the card",
+                                          got, resnet_card) | {"wall_s": cli_s}
+        launches = {"filter_sgd": fs.filter_sgd.launches,
+                    "robust_loss": rl.robust_lossfun.launches}
+        # MiniLM's rate at the padded length of the sentences under 512 tokens
+        minilm_T = tokenizers.WordPieceTokenizer.from_dir(minilm)(sentences[:-1])
+        rates = feat_rates(snaps, pth, minilm_T["input_ids"].shape[1])
+
+    failed = [k for k, r in rows.items() if k != "BERTword_tf32"
+              and not (r.get("ok") if r["rule"] == "float64" else r["max_abs_err"] <= r["bound"])]
+    wall = time.perf_counter() - t_phase
+    print(json.dumps({"featurizers": {"held": rows, "rates": rates, "launches": launches,
+                                      "wall_s": wall}}), flush=True)
+    if failed:
+        raise AssertionError(f"featurizer outputs over their bounds: {failed}")
+    log(f"featurizer phase: {wall:.1f} s; kernel launches on its path {launches}")
+    return launches
+
+
 def profiled(fn):
     """Run ``fn`` under torch.profiler: (wall s, {kernel name: device s},
     device busy s).  The busy time is the union of the CUDA kernels' spans:
@@ -1893,6 +2169,7 @@ def main() -> int:
     t0 = time.perf_counter()
     replay = replay_phase(fp32, replay_robust)
     log(f"replay phase: {time.perf_counter() - t0:.1f} s")
+    feat_launches = featurizer_phase()
 
     main_row = prod[-1]  # B=128, T=1920: the longest production bucket
     robust_row = robust[0]  # (128, 48384): the G step's residual
@@ -1924,6 +2201,7 @@ def main() -> int:
                       for r in raw if len(r["launch_plan"]) == 6],
         # the article replay (its raw smoke at 60 cycles), its counts read alone
         **replay["filter_sgd"],
+        "launches_featurizers": feat_launches["filter_sgd"],  # not on that path
     }, {
         "name": "robust_loss",
         "route": "cuda",
@@ -1947,6 +2225,7 @@ def main() -> int:
         "launch_plan": robust_row["launch_plan"],
         # the article replay (v2+text and the finger sweep), its counts read alone
         **replay["robust_loss"],
+        "launches_featurizers": feat_launches["robust_loss"],  # not on that path
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

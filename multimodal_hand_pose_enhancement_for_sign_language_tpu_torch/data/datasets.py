@@ -3,12 +3,13 @@
 The port's copy of the JAX package's ``data/datasets.py`` (library
 equivalents of utils/utils.py:205-279 with paths as arguments; the reference
 hard-codes cluster paths).  The CLI is ``process_dataset``.  The
-``obtain_vid_*`` crop and feature drivers wait for the featurizer towers
-(ROADMAP queue 1, item 4).
+``obtain_vid_*`` functions write the hand crops and their ResNet-50 features
+in chunks of clips, each chunk a pickle, concatenated in natural order.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 from dataclasses import dataclass
 
@@ -17,6 +18,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
     openpose,
     text as text_lib,
     video as video_lib,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.io import (
+    load_binary,
+    save_binary,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constants import (
     DATA_PATHS,
@@ -63,6 +68,7 @@ def _load_h2s_split(
     text_method: str = "precomputed",
     require_video_ids: bool = False,
     max_workers=None,
+    device="cuda",
 ):
     """One split -> (in_features, out_features, embeds, categs).
 
@@ -98,7 +104,7 @@ def _load_h2s_split(
     embeds = None
     if os.path.exists(text_path) and text_method != "precomputed":
         embeds = text_lib.obtain_embeddings(
-            text_path, ids, method=text_method, groupByClip=group_by_clip
+            text_path, ids, method=text_method, groupByClip=group_by_clip, device=device
         )
     if group_by_clip:
         clips, in_features, out_features = openpose.group_clips(
@@ -118,3 +124,69 @@ def load_h2s_dataset(paths: DatasetPaths, subset: float = 0.1, **kwargs):
 
 # camelCase alias for reference-API parity
 load_H2S_dataset = load_h2s_dataset
+
+
+def _video_ids(paths: DatasetPaths, split: str) -> list:
+    """Ids with keypoints, text and an .mp4 (utils/utils.py:285-292)."""
+    ids = _join_ids(os.listdir(paths.json_dir(split)),
+                    text_lib.get_clip_ids(paths.text_path(split)))
+    return sorted(_join_ids(ids, video_lib.get_vid_ids(paths.vid_dir(split))))
+
+
+def _chunks(paths: DatasetPaths, split: str, chunk: int):
+    """(start, crops) for each chunk of ``chunk`` clips, decoded (cv2) and
+    cropped."""
+    vid_dir = paths.vid_dir(split)
+    ids = _video_ids(paths, split)
+    for start in range(0, len(ids), chunk):
+        sub = ids[start: start + chunk]
+        clips = [video_lib.load_clip(os.path.join(vid_dir, i + ".mp4")) for i in sub]
+        yield start, video_lib.obtain_cropped_clips(clips, paths.json_dir(split), sub)
+
+
+def _gather(data_dir: str, pattern: str, remove: bool) -> list:
+    files = glob.glob(os.path.join(data_dir, pattern))
+    files.sort(key=openpose.natural_keys)  # chunk order, not lexicographic
+    out = []
+    for f in files:
+        out += load_binary(f)
+        if remove:
+            os.remove(f)
+    return out
+
+
+def obtain_vid_crops(paths: DatasetPaths, split: str, data_dir: str, return_crops=False,
+                     chunk=500):
+    """Hand-crop extraction with chunked persistence
+    (reference utils/utils.py:282-310); the chunk files are removed."""
+    for start, crops in _chunks(paths, split, chunk):
+        save_binary(crops, f"{data_dir}/{split}_vid_crops_{start}-{start + chunk}.pkl")
+    crops = _gather(data_dir, f"{split}_vid_crops_*.pkl", remove=True)
+    if return_crops:
+        return crops
+    save_binary(crops, f"{data_dir}/{split}_vid_crops.pkl")
+
+
+def obtain_vid_feats(split: str, data_dir: str, hand_crops_list=None, weights_path=None,
+                     device="cuda"):
+    """Crops -> ResNet features pickle (reference utils/utils.py:314-319)."""
+    if hand_crops_list is None:
+        hand_crops_list = load_binary(f"{data_dir}/{split}_vid_crops.pkl")
+    feats = video_lib.obtain_feats_crops_resnet(hand_crops_list, weights_path, device=device)
+    save_binary(feats, f"{data_dir}/{split}_vid_feats.pkl")
+    return feats
+
+
+def obtain_vid_crops_and_feats(paths: DatasetPaths, split: str, data_dir: str,
+                               weights_path=None, chunk=500, return_feats=False,
+                               device="cuda"):
+    """Crops and features in one pass, with chunked, naturally sorted
+    persistence (reference utils/utils.py:322-356); the chunk files stay, as
+    there."""
+    for start, crops in _chunks(paths, split, chunk):
+        feats = video_lib.obtain_feats_crops_resnet(crops, weights_path, device=device)
+        save_binary(feats, f"{data_dir}/{split}_vid_feats_{start}-{start + chunk}.pkl")
+    feats = _gather(data_dir, f"{split}_vid_feats_*.pkl", remove=False)
+    if return_feats:
+        return feats
+    save_binary(feats, f"{data_dir}/{split}_vid_feats.pkl")

@@ -16,6 +16,14 @@ generator is the only way to exercise the pipeline hermetically:
     consistent (r6d <-> aa <-> xyz).  Its FK, IK and r6d conversion run on
     ``device``; the categories and the embeddings are numpy's alone, equal
     to the JAX package's for the same seed.
+  * ``make_video_tree``      -- an .mp4 per utterance of an OpenPose tree
+    (needs cv2), the same frames as the JAX package's for the same seed.
+  * ``write_bert_snapshot`` / ``write_clip_snapshot`` /
+    ``write_resnet50_weights`` -- featurizer weights with seeded random
+    values at any width, written as a local Hugging Face snapshot
+    (config.json, the tokenizer's vocabulary files, ``pytorch_model.bin``)
+    or a torchvision ``.pth``, without ``transformers``; the vocabularies
+    (``bert_vocab``, ``clip_bpe_vocab``) cover the given sentences.
 """
 
 from __future__ import annotations
@@ -329,3 +337,213 @@ def make_r6d_dataset(
         save_binary(categs, os.path.join(data_dir, f"categs_{split}.pkl"))
         out[split] = dict(n=n)
     return out
+
+
+def make_video_tree(root: str, height: int = 360, width: int = 480, seed: int = 0):
+    """Write a tiny .mp4 per utterance of an existing OpenPose tree (layout
+    ``{split}/rgb_front/raw_videos/{utt_id}.mp4``, the reference's VID_PATHS,
+    proc_vid.py:16-26), one random frame per JSON frame.  Needs cv2."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for split in SPLITS:
+        json_root = os.path.join(root, split, "rgb_front", "features", "openpose_output", "json")
+        vid_dir = os.path.join(root, split, "rgb_front", "raw_videos")
+        os.makedirs(vid_dir, exist_ok=True)
+        ids = sorted(os.listdir(json_root)) if os.path.isdir(json_root) else []
+        for uid in ids:
+            n_frames = len(os.listdir(os.path.join(json_root, uid)))
+            writer = cv2.VideoWriter(os.path.join(vid_dir, uid + ".mp4"),
+                                     cv2.VideoWriter_fourcc(*"mp4v"), 24.0, (width, height))
+            for _ in range(n_frames):
+                writer.write(rng.randint(0, 255, size=(height, width, 3), dtype=np.uint8))
+            writer.release()
+        out[split] = vid_dir
+    return out
+
+
+# --- featurizer snapshots (no transformers needed) ---
+
+BERT_SPECIALS = ("[PAD]", *(f"[unused{i}]" for i in range(99)), "[UNK]", "[CLS]", "[SEP]",
+                 "[MASK]")  # bert-base-uncased's ids 0-103
+
+
+def bert_vocab(sentences, size=None) -> list:
+    """A WordPiece vocabulary laid out as bert-base-uncased's: the specials
+    at ids 0-103, every character of the (lower-cased, accent-stripped)
+    sentences with its ``##`` form, every other word whole, the rest as a
+    head and a ``##`` tail (so they split), padded with ``[unused]``
+    entries to ``size``."""
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.tokenizers import (
+        basic_tokenize,
+    )
+
+    words = sorted({w for s in sentences for w in basic_tokenize(s)})
+    chars = sorted({c for w in words for c in w})
+    pieces = [*chars, *(f"##{c}" for c in chars)]
+    for i, w in enumerate(words):
+        half = max(len(w) // 2, 1)
+        pieces += [w] if i % 2 == 0 else [w[:half], f"##{w[half:]}"]
+    vocab = list(dict.fromkeys([*BERT_SPECIALS, *pieces]))
+    if size is not None:
+        if size < len(vocab):
+            raise ValueError(f"size {size} < the {len(vocab)} tokens the sentences need")
+        vocab += [f"[unused{i}]" for i in range(99, 99 + size - len(vocab))]
+    return vocab
+
+
+def clip_bpe_vocab(sentences, n_merges: int = 200):
+    """A byte-level BPE vocabulary as CLIP's is laid out: the 256 byte
+    symbols, their ``</w>`` forms, the merges learned on the sentences'
+    words (the most frequent adjacent pair first, ties by the larger pair)
+    with their merged symbols, then ``<|startoftext|>`` and
+    ``<|endoftext|>`` last.  Returns (encoder dict, merges list)."""
+    from collections import Counter
+
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.tokenizers import (
+        basic_tokenize,
+        bytes_to_unicode,
+        clip_pretokenize,
+    )
+
+    byte_enc = bytes_to_unicode()
+    symbols = list(byte_enc.values())
+    vocab = [*symbols, *(f"{c}</w>" for c in symbols)]
+    words: Counter = Counter()
+    for s in sentences:
+        text = " ".join(basic_tokenize(s, strip_accents=False, split_on_punc=False))
+        for piece in clip_pretokenize(text):
+            enc = [byte_enc[b] for b in piece.encode("utf-8")]
+            words[(*enc[:-1], enc[-1] + "</w>")] += 1
+    merges = []
+    for _ in range(n_merges):
+        pairs: Counter = Counter()
+        for w, n in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append(best)
+        vocab.append(best[0] + best[1])
+        merged: Counter = Counter()
+        for w, n in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i < len(w) - 1 and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += n
+        words = merged
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    return {tok: i for i, tok in enumerate(dict.fromkeys(vocab))}, merges
+
+
+def _write_json(path, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2)
+
+
+def write_bert_snapshot(model_dir: str, sentences, hidden_size=384, num_layers=6,
+                        num_heads=12, intermediate_size=1536, max_position=512,
+                        vocab_size=None, seed=0) -> str:
+    """A BertModel snapshot with seeded random weights (HF's init): config.json,
+    vocab.txt (``bert_vocab`` of ``sentences``, ``vocab_size`` entries),
+    tokenizer_config.json (lower-casing, ``model_max_length`` = positions)
+    and pytorch_model.bin in HF's keys."""
+    import torch
+
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import (
+        text_encoders,
+    )
+
+    os.makedirs(model_dir, exist_ok=True)
+    vocab = bert_vocab(sentences, vocab_size)
+    with open(os.path.join(model_dir, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    _write_json(os.path.join(model_dir, "tokenizer_config.json"),
+                {"do_lower_case": True, "model_max_length": max_position})
+    _write_json(os.path.join(model_dir, "config.json"), {
+        "architectures": ["BertModel"], "model_type": "bert", "vocab_size": len(vocab),
+        "hidden_size": hidden_size, "num_hidden_layers": num_layers,
+        "num_attention_heads": num_heads, "intermediate_size": intermediate_size,
+        "max_position_embeddings": max_position, "type_vocab_size": 2,
+        "hidden_act": "gelu", "layer_norm_eps": 1e-12})
+    net = text_encoders.materialize(
+        lambda: text_encoders.BertEncoder(len(vocab), hidden_size, num_layers, num_heads,
+                                          intermediate_size, max_position),
+        "cpu", generator=torch.Generator().manual_seed(seed))
+    torch.save(net.state_dict(), os.path.join(model_dir, "pytorch_model.bin"))
+    return model_dir
+
+
+def write_clip_snapshot(model_dir: str, sentences, text=None, vision=None,
+                        projection_dim=512, n_merges=200, seed=0) -> str:
+    """A full CLIPModel snapshot with seeded random weights: config.json
+    (``text_config``, ``vision_config``, ``projection_dim``), vocab.json
+    and merges.txt (``clip_bpe_vocab`` of ``sentences``),
+    tokenizer_config.json (``model_max_length`` 77 or the text positions)
+    and pytorch_model.bin in HF's keys.  ``text`` / ``vision`` override the
+    ViT-B/32 widths (the text tower's vocabulary is at least the
+    tokenizer's)."""
+    import torch
+
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import (
+        clip_vision,
+        text_encoders,
+    )
+
+    encoder, merges = clip_bpe_vocab(sentences, n_merges)
+    t = {**dict(vocab_size=49408, hidden_size=512, num_hidden_layers=12, num_attention_heads=8,
+                intermediate_size=2048, max_position_embeddings=77), **(text or {})}
+    t["vocab_size"] = max(t["vocab_size"], len(encoder))
+    v = {**dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                intermediate_size=3072, image_size=224, patch_size=32), **(vision or {})}
+    os.makedirs(model_dir, exist_ok=True)
+    _write_json(os.path.join(model_dir, "vocab.json"), encoder)
+    with open(os.path.join(model_dir, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    _write_json(os.path.join(model_dir, "tokenizer_config.json"),
+                {"model_max_length": t["max_position_embeddings"]})
+    _write_json(os.path.join(model_dir, "config.json"), {
+        "architectures": ["CLIPModel"], "model_type": "clip", "projection_dim": projection_dim,
+        "text_config": {**t, "eos_token_id": encoder["<|endoftext|>"]}, "vision_config": v})
+    gen = torch.Generator().manual_seed(seed)
+    text_net = text_encoders.materialize(lambda: text_encoders.CLIPTextEncoder(
+        t["vocab_size"], t["hidden_size"], t["num_hidden_layers"], t["num_attention_heads"],
+        t["intermediate_size"], t["max_position_embeddings"], projection_dim), "cpu",
+        generator=gen)
+    vision_net = text_encoders.materialize(lambda: clip_vision.CLIPVisionEncoder(
+        v["hidden_size"], v["num_hidden_layers"], v["num_attention_heads"],
+        v["intermediate_size"], v["image_size"], v["patch_size"], projection_dim), "cpu",
+        generator=gen)
+    sd = {**text_net.state_dict(), **vision_net.state_dict(),
+          "logit_scale": torch.tensor(2.6592)}
+    torch.save(sd, os.path.join(model_dir, "pytorch_model.bin"))
+    return model_dir
+
+
+def write_resnet50_weights(path: str, seed=0) -> str:
+    """A torchvision-layout ResNet-50 ``.pth``: torchvision's init from
+    ``seed``, then BatchNorm affine parameters and running statistics drawn
+    too (so eval mode is no identity)."""
+    import torch
+
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import resnet
+
+    gen = torch.Generator().manual_seed(seed)
+    net = resnet.load_resnet50(None, device="cpu", generator=gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(0.5 + torch.rand(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+    torch.save(net.state_dict(), path)
+    return path

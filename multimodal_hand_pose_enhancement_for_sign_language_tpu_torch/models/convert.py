@@ -7,9 +7,17 @@ as the JAX package's ``models/torch_port.generator_to_torch_state``:
 
   * Conv1d     flax (k, in, out) -> torch (out, in, k)
   * ConvT1d    flax (k, in, out) -> torch (in, out, k)
+  * Conv2d     flax (kh, kw, in, out) -> torch (out, in, kh, kw)
   * Dense      flax (in, out)    -> torch (out, in)
+  * LayerNorm  scale/bias -> weight/bias
   * BatchNorm  scale/bias -> weight/bias; mean/var -> running_mean/var;
     ``num_batches_tracked`` is 0 (eval uses the running statistics as is).
+
+The featurizer towers map onto their published layouts (HF ``BertModel``,
+``CLIPModel``'s text and vision towers, torchvision's ``resnet50``): the
+inverses of the JAX package's ``bert_from_hf_state``,
+``clip_text_from_hf_state``, ``clip_vision_from_hf_state`` and
+``from_torchvision_state``.
 """
 
 from __future__ import annotations
@@ -141,3 +149,98 @@ def sentence_classifier_state_dict(params) -> dict:
     """The JAX ``SentenceClassifier`` params (``fc1``, ``fc2``) -> the
     reference's ``classifier.0`` / ``classifier.2`` layout."""
     return {**_dense("classifier.0", params["fc1"]), **_dense("classifier.2", params["fc2"])}
+
+
+# ---------------------------------------------------------------------------
+# featurizer towers
+# ---------------------------------------------------------------------------
+
+
+def _ln(out, block):
+    return {f"{out}.weight": _t(block["scale"]), f"{out}.bias": _t(block["bias"])}
+
+
+def _conv2d(block):
+    return _t(np.transpose(np.asarray(block["kernel"]), (3, 2, 0, 1)))
+
+
+def _layers(params, base, names):
+    """Every ``layer{i}`` block of a flax transformer, each sub-block named by
+    ``names`` (flax name -> torch suffix, Dense or LayerNorm by its keys)."""
+    sd: dict = {}
+    i = 0
+    while f"layer{i}" in params:
+        for flax_name, torch_name in names.items():
+            block = params[f"layer{i}"][flax_name]
+            key = f"{base}.{i}.{torch_name}"
+            sd.update(_ln(key, block) if "scale" in block else _dense(key, block))
+        i += 1
+    return sd
+
+
+_BERT_LAYER = {"q": "attention.self.query", "k": "attention.self.key",
+               "v": "attention.self.value", "attn_out": "attention.output.dense",
+               "attn_ln": "attention.output.LayerNorm", "fc1": "intermediate.dense",
+               "fc2": "output.dense", "out_ln": "output.LayerNorm"}
+_CLIP_LAYER = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+               "attn_out": "self_attn.out_proj", "ln1": "layer_norm1", "ln2": "layer_norm2",
+               "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def bert_state_dict(variables) -> dict:
+    """The JAX ``BertEncoder``'s variables -> HF ``BertModel`` keys."""
+    p = variables["params"]
+    sd = {f"embeddings.{n}.weight": _t(p[n]["embedding"])
+          for n in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+    sd.update(_ln("embeddings.LayerNorm", p["embeddings_ln"]))
+    sd.update(_layers(p, "encoder.layer", _BERT_LAYER))
+    return sd
+
+
+def clip_text_state_dict(variables) -> dict:
+    """The JAX ``CLIPTextEncoder``'s variables -> ``text_model.*`` and
+    ``text_projection.weight``."""
+    p = variables["params"]
+    sd = {"text_model.embeddings.token_embedding.weight": _t(p["token_embedding"]["embedding"]),
+          "text_model.embeddings.position_embedding.weight": _t(p["position_embedding"]),
+          "text_projection.weight": _t(np.transpose(np.asarray(p["text_projection"]), (1, 0)))}
+    sd.update(_ln("text_model.final_layer_norm", p["final_ln"]))
+    sd.update(_layers(p, "text_model.encoder.layers", _CLIP_LAYER))
+    return sd
+
+
+def clip_vision_state_dict(variables) -> dict:
+    """The JAX ``CLIPVisionEncoder``'s variables -> ``vision_model.*`` (HF's
+    ``pre_layrnorm`` spelling) and ``visual_projection.weight``."""
+    p = variables["params"]
+    pre = "vision_model."
+    sd = {f"{pre}embeddings.class_embedding": _t(p["class_embedding"]),
+          f"{pre}embeddings.patch_embedding.weight": _conv2d(p["patch_embedding"]),
+          f"{pre}embeddings.position_embedding.weight": _t(p["position_embedding"]),
+          "visual_projection.weight": _t(np.transpose(np.asarray(p["visual_projection"]),
+                                                      (1, 0)))}
+    sd.update(_ln(f"{pre}pre_layrnorm", p["pre_ln"]))
+    sd.update(_ln(f"{pre}post_layernorm", p["post_ln"]))
+    sd.update(_layers(p, f"{pre}encoder.layers", _CLIP_LAYER))
+    return sd
+
+
+def resnet50_state_dict(variables) -> dict:
+    """The JAX ``ResNet50``'s ``{'params', 'batch_stats'}`` -> torchvision's
+    ``resnet50`` keys."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {"conv1.weight": _conv2d(params["conv1"])}
+    sd.update(_bn("bn1", params["bn1"], stats["bn1"]))
+    for name, block in params.items():
+        if not name.startswith("layer"):
+            continue
+        out = name.replace("_", ".")  # layer{s}_{b} -> layer{s}.{b}
+        for ci in (1, 2, 3):
+            sd[f"{out}.conv{ci}.weight"] = _conv2d(block[f"conv{ci}"])
+            sd.update(_bn(f"{out}.bn{ci}", block[f"bn{ci}"], stats[name][f"bn{ci}"]))
+        if "downsample_conv" in block:
+            sd[f"{out}.downsample.0.weight"] = _conv2d(block["downsample_conv"])
+            sd.update(_bn(f"{out}.downsample.1", block["downsample_bn"],
+                          stats[name]["downsample_bn"]))
+    sd.update(_dense("fc", params["fc"]))
+    return sd

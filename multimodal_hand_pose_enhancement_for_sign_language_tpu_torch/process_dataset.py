@@ -16,10 +16,17 @@ link, or a copy), and ``categs_{split}.pkl``.  With ``--lift`` it lifts
 ``xyz_{split}.pkl`` and ``r6d_{split}.pkl``, and for the train split
 ``lengths_train.pkl``.
 
-Not ported yet (ROADMAP queue 1, item 4): ``--crops``, ``--vid_feats``,
-``--resnet_weights`` and a ``--text_method`` other than ``precomputed``;
-each raises ``NotImplementedError``.  This module imports no torch until
-``--lift`` runs, so that the ingestion's spawn workers start fast.
+A model ``--text_method`` (BERTsentence, BERTword, clip) writes
+``{split}_sentence_embeddings.pkl`` and its ``average_`` form through
+``data/text.obtain_embeddings``; the CLI passes no snapshot, as the root
+one, so that is the hub route.  ``--crops`` writes ``{split}_vid_crops.pkl``
+from the split's videos (``--vid_template``; cv2), and ``--vid_feats``
+writes ``{split}_vid_feats.pkl`` ((T, 2000) per clip, the ResNet-50 of
+``--resnet_weights`` on ``--device``) from the videos; for a split without
+a video directory whose crops pickle is already in ``--data_dir`` (written
+by ``--crops``, perhaps on a machine with cv2), ``--vid_feats`` featurizes
+those crops.  This module imports no torch until a device stage runs, so
+that the ingestion's spawn workers start fast.
 """
 
 from __future__ import annotations
@@ -99,7 +106,8 @@ def process_split(args, split: str, pool=None):
     # text embeddings: "precomputed" writes none (data/text.py)
     if os.path.exists(text_path):
         embeds = text_lib.obtain_embeddings(
-            text_path, ids, method=args.text_method, groupByClip=args.group_by_clip
+            text_path, ids, method=args.text_method, groupByClip=args.group_by_clip,
+            device=args.device,
         )
         if embeds is not None:
             save_binary(np.asarray(embeds),
@@ -117,6 +125,9 @@ def process_split(args, split: str, pool=None):
             categs = categ_lib.get_clips_categ(clips, id_categ)
         save_binary(categs, os.path.join(args.data_dir, f"categs_{split}.pkl"))
 
+    if args.crops or args.vid_feats:
+        video_stage(args, split)
+
     if args.lift:
         from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import lift
 
@@ -128,14 +139,32 @@ def process_split(args, split: str, pool=None):
     return stats
 
 
-def refuse_unported(args) -> None:
-    """Raise on the options whose featurizers are not ported yet."""
-    for flag in ("crops", "vid_feats", "resnet_weights"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} {text_lib.NOT_PORTED}")
-    if args.text_method != "precomputed":
-        raise NotImplementedError(
-            f"--text_method {args.text_method} {text_lib.NOT_PORTED}")
+def video_stage(args, split: str) -> None:
+    """Hand crops or their ResNet-50 features for one split (the reference's
+    commented-out b2h continuation, utils/utils.py:536-554)."""
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
+        datasets as datasets_lib,
+    )
+
+    paths = datasets_lib.DatasetPaths(
+        args.dataset_path, text_template=args.text_path_template,
+        categ_template=args.categ_path_template, vid_template=args.vid_template)
+    crops_path = os.path.join(args.data_dir, f"{split}_vid_crops.pkl")
+    if os.path.isdir(paths.vid_dir(split)):
+        if args.vid_feats:
+            datasets_lib.obtain_vid_crops_and_feats(
+                paths, split, args.data_dir, weights_path=args.resnet_weights,
+                chunk=args.vid_chunk, device=args.device)
+            print(f"[{split}] wrote {split}_vid_feats.pkl", flush=True)
+        else:
+            datasets_lib.obtain_vid_crops(paths, split, args.data_dir, chunk=args.vid_chunk)
+            print(f"[{split}] wrote {split}_vid_crops.pkl", flush=True)
+    elif args.vid_feats and os.path.exists(crops_path):
+        datasets_lib.obtain_vid_feats(split, args.data_dir, weights_path=args.resnet_weights,
+                                      device=args.device)
+        print(f"[{split}] wrote {split}_vid_feats.pkl from {split}_vid_crops.pkl", flush=True)
+    else:
+        print(f"[{split}] no videos at {paths.vid_dir(split)}; skipping crops", flush=True)
 
 
 def resolve_templates(args):
@@ -152,8 +181,7 @@ def resolve_templates(args):
 
 def main(args) -> dict:
     """Every split's pickles; returns {split: process_split's stats}."""
-    refuse_unported(args)
-    if args.lift:
+    if args.lift or args.vid_feats or args.text_method != "precomputed":
         from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
             resolve_device,
         )
@@ -171,19 +199,19 @@ def build_parser():
     parser.add_argument("--data_dir", type=str, default="video_data", help="output directory")
     parser.add_argument("--text_path_template", type=str, default="{split}.text.id.en", help="per-split text id file (relative or absolute; {split} substituted)")
     parser.add_argument("--categ_path_template", type=str, default="videoID_categoryID_{split}.csv", help="per-split category csv")
-    parser.add_argument("--text_method", type=str, default="precomputed", help="text embedding method; only 'precomputed' is ported")
+    parser.add_argument("--text_method", type=str, default="precomputed", help="text embedding method (precomputed|BERTsentence|clip|BERTword)")
     parser.add_argument("--subset", type=float, default=1.0, help="fraction of utterances to keep")
     parser.add_argument("--group_by_clip", action=argparse.BooleanOptionalAction, default=True, help="group utterances into videos (reference default); --no-group_by_clip for utterance-level")
     parser.add_argument("--lift", action="store_true", help="run 2D->3D lifting + r6d conversion")
-    parser.add_argument("--crops", action="store_true", help="hand crops from videos (not ported yet)")
-    parser.add_argument("--vid_feats", action="store_true", help="crops and ResNet-50 hand features (not ported yet)")
+    parser.add_argument("--crops", action="store_true", help="extract 120x120 hand crops from videos (reference utils/utils.py:536-545)")
+    parser.add_argument("--vid_feats", action="store_true", help="extract crops AND ResNet-50 hand features (reference utils/utils.py:547-554)")
     parser.add_argument("--vid_template", type=str, default="{split}/rgb_front/raw_videos", help="per-split video directory (relative to dataset root or absolute)")
-    parser.add_argument("--resnet_weights", type=str, default=None, help="torchvision resnet50 .pth (not ported yet)")
+    parser.add_argument("--resnet_weights", type=str, default=None, help="torchvision resnet50 .pth for the hand features")
     parser.add_argument("--vid_chunk", type=int, default=500, help="clips per persisted crops/feats chunk")
     parser.add_argument("--n_partitions", type=int, default=40, help="lifting checkpoint partitions")
     parser.add_argument("--n_cycles", type=int, default=900, help="lifting SGD cycles")
     parser.add_argument("--workers", type=int, default=None, help="ingestion processes")
-    parser.add_argument("--device", type=str, default="cuda", help="'cuda' or 'cpu' for the lifting")
+    parser.add_argument("--device", type=str, default="cuda", help="'cuda' or 'cpu' for the lifting, the features and the text towers")
     return parser
 
 

@@ -13,7 +13,11 @@ JAX package's own for its Pallas kernel: the filter atol 2e-4
 rtol 1e-4 / atol 1e-6 (test_pallas_kernels.py:108, :122).  The classifier
 LSTM (cuDNN, no kernel of the port) is held against a float64 evaluation
 on the CPU: the card's float32 logits may be twice as far from it as the
-CPU's float32 ones, and TF32 must miss that bound.
+CPU's float32 ones, and TF32 must miss that bound.  The featurizer towers
+(cuBLAS and cuDNN, no kernel of the port) at mid widths against the CPU on
+the same seeded weights: within 2^-15 of the output's largest value, the
+generators' raw-output rule, or for ResNet-50 where cuDNN breaks it, within
+twice the CPU's float32 error against float64.
 """
 
 import numpy as np
@@ -22,6 +26,11 @@ import torch
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.infer import (
     conv_matmul_precision,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import (
+    clip_vision,
+    resnet,
+    text_encoders,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.classifier import (
     build_classifier,
@@ -442,3 +451,43 @@ def test_classifier_lstm_on_the_card_is_float32(cuda):
     err_cpu = float((want - ref).abs().max())
     assert 0 < float((got["float32"] - ref).abs().max()) <= 2 * err_cpu
     assert float((got["tensorfloat32"] - ref).abs().max()) > 2 * err_cpu
+
+
+def _tower_case(name, g):
+    """(constructor, inputs) of a tower at mid width, inputs from ``g``."""
+    if name == "bert":
+        ids = torch.randint(0, 1000, (4, 128), generator=g)
+        mask = torch.ones_like(ids)
+        mask[1, 70:] = 0
+        return lambda: text_encoders.BertEncoder(1000, 256, 4, 4, 1024, 512), (ids, mask)
+    if name == "clip_text":
+        ids = torch.randint(0, 999, (4, 77), generator=g)
+        ids[:, 30] = 999
+        return (lambda: text_encoders.CLIPTextEncoder(1000, 256, 4, 4, 1024, 77, 128,
+                                                      eos_token_id=999), (ids,))
+    if name == "clip_vision":
+        return (lambda: clip_vision.CLIPVisionEncoder(256, 4, 4, 1024, 224, 32, 128),
+                (torch.randn(4, 3, 224, 224, generator=g),))
+    return resnet.ResNet50, (torch.randn(8, 3, 120, 120, generator=g),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bert", "clip_text", "clip_vision", "resnet50"])
+def test_featurizer_tower_on_the_card_is_float32(cuda, name):
+    g = torch.Generator().manual_seed(0)
+    make, inputs = _tower_case(name, g)
+    if name == "resnet50":
+        cpu = resnet.load_resnet50(None, device="cpu", generator=g)
+    else:
+        cpu = text_encoders.materialize(make, "cpu", generator=g)
+    card = text_encoders.materialize(make, cuda, state_dict=cpu.state_dict())
+    with torch.no_grad(), conv_matmul_precision("float32"):
+        want = cpu(*inputs)
+        got = card(*(x.to(cuda) for x in inputs)).cpu()
+    err = float((got - want).abs().max())
+    if err <= 2.0**-15 * float(want.abs().max()):
+        return
+    assert name == "resnet50", (name, err, float(want.abs().max()))
+    with torch.no_grad():
+        ref = cpu.double()(inputs[0].double())
+    assert float((got - ref).abs().max()) <= 2 * float((want - ref).abs().max())

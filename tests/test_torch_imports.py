@@ -9,6 +9,12 @@
   chip_step_precision.py imports them.
 * chip_smoke.py refuses to run (nonzero exit, no result line) on a machine
   without CUDA.
+* The featurizers need none of what the card's machine lacks: with
+  ``transformers``, ``tokenizers``, ``safetensors``, ``regex``,
+  ``torchvision``, ``clip``, ``cv2`` and PIL blocked too, every port module
+  imports and the three text methods and both image features run from
+  snapshots the port writes itself; statically, those packages are
+  imported only inside functions (the hub routes and video decoding).
 """
 
 import ast
@@ -94,13 +100,88 @@ def test_port_imports_and_loads_a_jax_checkpoint_without_jax(tmp_path):
                  "data.categories", "data.synthetic", "classifier_main",
                  "classifier_mlp_main", "data.openpose", "data.text", "data.video",
                  "data.datasets", "data.skeleton_preproc", "runtime.native",
-                 "process_dataset", "article_replay"):
+                 "process_dataset", "article_replay", "data.tokenizers",
+                 "models.hf_snapshot", "models.text_encoders", "models.clip_vision",
+                 "models.resnet"):
         assert f"{PORT}.{name}" in info["modules"], name
     want = convert.generator_state_dict(variables)
     got = np.load(out)
     assert sorted(got.files) == sorted(want)
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], v.numpy())
+
+
+# absent on the card's machine: imported only inside the functions that need them
+CARD_ABSENT = ("transformers", "tokenizers", "safetensors", "regex", "torchvision", "clip",
+               "cv2", "PIL")
+
+_FEATURIZER_CHILD = r"""
+import importlib, json, pkgutil, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import numpy as np
+import {port} as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+from {port}.data import synthetic, text, video
+d = {tmp!r}
+S = ["hello world, sign language!", "the cat's hat is red"]
+open(d + "/t.txt", "w").write("".join(f"c{{i}}-x {{s}}\n" for i, s in enumerate(S)))
+synthetic.write_bert_snapshot(d + "/bert", S, hidden_size=16, num_layers=1, num_heads=2,
+                              intermediate_size=32)
+synthetic.write_clip_snapshot(d + "/clip", S, projection_dim=8,
+    text=dict(hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32),
+    vision=dict(hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
+                intermediate_size=32, image_size=32, patch_size=16))
+shapes = {{m: text.obtain_embeddings(d + "/t.txt", ["c0-x", "c1-x"], method=m,
+                                    weights_path=d + ("/clip" if m == "clip" else "/bert"),
+                                    device="cpu").shape
+          for m in ("BERTsentence", "BERTword", "clip")}}
+crops = [np.zeros((2, 3, 120, 120, 2), np.uint8)]
+shapes["resnet"] = video.obtain_feats_crops_resnet(crops, None, device="cpu")[0].shape
+shapes["clip_image"] = video.obtain_feats_crops_clip(crops, d + "/clip", device="cpu")[0].shape
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
+print(json.dumps({{"shapes": shapes, "leaked": leaked}}))
+"""
+
+
+def test_featurizers_run_without_the_hub_packages(tmp_path):
+    code = _FEATURIZER_CHILD.format(blocked=BLOCKED + CARD_ABSENT, port=PORT, tmp=str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert info["leaked"] == []
+    assert info["shapes"] == {"BERTsentence": [2, 16], "BERTword": [2, 512, 16],
+                              "clip": [2, 8], "resnet": [2, 2000], "clip_image": [2, 16]}
+
+
+def _top_level_imports(path):
+    """Modules imported outside any function body."""
+    tree = ast.parse(Path(path).read_text(), filename=str(path))
+    names = []
+
+    def visit(node):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            return
+        if isinstance(node, ast.Import):
+            names.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+        for child in ast.iter_child_nodes(node):
+            visit(child)
+
+    visit(tree)
+    return names
+
+
+def test_hub_packages_are_imported_only_inside_functions():
+    files = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for name in _top_level_imports(f):
+            assert name.split(".")[0] not in CARD_ABSENT, f"{f} imports {name} at import time"
 
 
 def _imported_modules(path):

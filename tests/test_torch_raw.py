@@ -231,8 +231,9 @@ def test_text_equals_jax(tree):
     emb = np.random.RandomState(0).randn(5, 7)
     np.testing.assert_array_equal(t_text.average_embeds(emb), text.average_embeds(emb))
     assert t_text.obtain_embeddings(path, ids, method="precomputed") is None
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        t_text.obtain_embeddings(path, ids, method="BERTsentence")
+    if not torch.cuda.is_available():  # a model method runs on the card (the default)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            t_text.obtain_embeddings(path, ids, method="BERTsentence")
 
 
 def _skeleton(rng, T):
@@ -365,16 +366,18 @@ def test_cli_lifts_as_the_root_cli(cli_runs, split):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """Every option is ported now; the stages that run on the device
+    (--lift, --vid_feats, a model --text_method; --device defaults to cuda)
+    refuse without a card before anything is written, and --crops, which
+    needs none, runs."""
     base = ["--dataset_path", str(tmp_path), "--data_dir", str(tmp_path / "o")]
-    for extra in (["--crops"], ["--vid_feats"], ["--resnet_weights", "w.pth"],
-                  ["--text_method", "clip"]):
-        args = t_pd.build_parser().parse_args(base + extra)
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            t_pd.main(args)
-    assert not (tmp_path / "o").exists()
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):  # --device defaults to cuda
-            t_pd.main(t_pd.build_parser().parse_args(base + ["--lift"]))
+        for extra in (["--lift"], ["--vid_feats"], ["--text_method", "clip"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                t_pd.main(t_pd.build_parser().parse_args(base + extra))
+        assert not (tmp_path / "o").exists()
+    t_pd.main(t_pd.build_parser().parse_args(base + ["--crops", "--workers", "1"]))
+    assert (tmp_path / "o").is_dir()
 
 
 def test_resolve_templates_as_the_root_cli(tmp_path, monkeypatch):

@@ -88,6 +88,29 @@ against a float64 CPU evaluation: at most twice the CPU's float32 error);
 bert-base under TF32 must miss the bound; rates of each tower.  Neither
 kernel lies on this path (its launch counts, read alone, are 0).
 
+Lifting alternatives (after serving): the serving clips of at most 256
+frames through ``lift_clips`` with each ``filter_impl``: 'pallas' (the
+kernel, launches counted), 'matpow' at float32 (within 3e-4 of the kernel)
+and at TF32 (reported), 'xla' named (the plain loop on the card, within the
+filter tolerance); matpow's refusal of a longer bucket; ``python -m ...demo``
+on the card against the CPU on its synthetic 64 frames and a seeded
+1,920-frame sequence (x, y within 2e-4, z within 2e-3; ``filter_sgd``
+launches counted); matpow and the kernel timed at B=128, T=64 and 256, with
+matpow's peak memory.
+
+Options (after training): v1's and v4_deeper+text's bf16 forwards against
+float32 (the JAX package's bars: max < 0.15, mean < 0.02) and timed at
+B=2048; ``train_gan.main --bf16 --log_grad_flow 1`` for v1 at B=128, 2
+epochs (``robust_loss`` launches counted, master weights and Adam state
+float32, the grad-flow events finite, one residual of the run held against
+the plain version), ``inference.main`` from its checkpoint with and without
+``--bf16`` (end-to-end MPJPE reported); one bf16 G step within 5% of the
+float32 one, each tensor's bf16 G and D gradient within 0.75 of the float32
+step's (in norm, relative); one ``fused_d`` D step against the sequential
+one (loss 1e-5 relative, statistics 5e-6, gradients 2^-6); G, D and val rates at float32 and bf16 and D
+fused, in turns; float64 clips through ``load_data`` against the JAX legacy
+route's arrays (``tests/data/load_data_float64_ref.npz``).
+
 Prints one line per phase, then a JSON line describing each kernel (with
 its launch plan and, for the filter, the raw path's launches and long rows,
 its bound over the live elements and
@@ -101,6 +124,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -118,6 +142,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import (
     article_replay,
     classifier_main,
     classifier_mlp_main,
+    demo,
     infer,
     inference,
     process_dataset,
@@ -133,7 +158,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
     video,
     windows,
 )
-from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import engine
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import (
+    engine,
+    filtering,
+)
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.losses.robust import (
     AdaptiveLossFunction,
 )
@@ -1005,6 +1033,7 @@ def timed_epochs(trainer, X, Y, kind, batch_size, resident, repeats=5,
         f"({'resident' if resident else 'host batches'}, B={batch_size}): "
         f"{steps} steps in {dt:.3f} s = {steps / dt:.2f} steps/s, "
         f"{steps * batch_size * X.shape[1] / dt:.1f} frames/s")
+    return steps / dt
 
 
 def epoch_watch(cfg):
@@ -2076,6 +2105,421 @@ def featurizer_phase():
     return launches
 
 
+# lifting-alternatives phase: the engine's three filters on the serving
+# clips that matpow takes (T <= engine.MATPOW_MAX_T), its guard, and the
+# demo CLI (the single-clip v2 API) card vs CPU
+MATPOW_ATOL = 3e-4  # the JAX package's matpow bound (test_pallas_kernels.py:62-82)
+MATPOW_SHAPES = ((128, 64), (128, 256))  # (B, T): the engine's batch, its shortest and longest bucket
+DEMO_FRAMES = 1920  # the serving clips' longest
+
+
+def matpow_timing(B, T, rng, reps=3):
+    """filter_xyz_matpow at 'float32' and 'tensorfloat32' against the kernel
+    on seeded planes (B, T), 900 cycles: ms, peak memory, error."""
+    ins = filter_inputs(rng, B, T, "cuda")
+    want = fs.filter_sgd(*ins, LR, N_CYCLES)
+    kernel_ms = cuda_ms(lambda: fs.filter_sgd(*ins, LR, N_CYCLES), reps=reps)
+    row = {"B": B, "T": T, "kernel_ms": kernel_ms}
+    for prec in ("float32", "tensorfloat32"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = filtering.filter_xyz_matpow(*ins, LR, N_CYCLES, precision=prec)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        live = ins[-1] > 0
+        err = max(float((g - w)[live].abs().max()) for g, w in zip(got, want))
+        del got
+        ms = cuda_ms(lambda: filtering.filter_xyz_matpow(*ins, LR, N_CYCLES, precision=prec),
+                     reps=reps)
+        row[prec] = {"ms": ms, "peak_gib": peak / 2**30, "max_abs_err_vs_kernel": err}
+    log("matpow " + json.dumps(row))
+    return row
+
+
+def demo_sequence(rng, T):
+    """A seeded OpenPose-like (T, 150) sequence, as the demo's synthetic one."""
+    X = rng.uniform(100, 500, size=(T, 150)).astype(np.float32)
+    X[:, 2::3] = rng.uniform(0.5, 1.0, size=(T, 50))
+    return X
+
+
+def lift_alt_phase(clips):
+    """The lifting alternatives on the card, ``filter_sgd``'s count at 0 just
+    before: ``lift_clips`` over the serving clips of T <= MATPOW_MAX_T with
+    filter_impl 'pallas' (the kernel), 'matpow' at 'float32' (within
+    MATPOW_ATOL of the kernel) and 'tensorfloat32' (reported), and 'xla'
+    named (the plain loop on the card, within FILTER_ATOL of the kernel);
+    matpow refuses a longer bucket; the demo CLI on the card against the
+    demo on the CPU (its synthetic 64 frames and a seeded DEMO_FRAMES-frame
+    .npy), at the lifting tolerances; matpow and the kernel timed at
+    MATPOW_SHAPES.  Returns the phase's summary."""
+    short = [c for c in clips if c.shape[0] <= engine.MATPOW_MAX_T]
+    frames = sum(c.shape[0] for c in short)
+    fs.filter_sgd.launches = 0  # counts of this path start here
+    runs = {}
+    for impl, prec in (("pallas", None), ("matpow", "float32"),
+                       ("matpow", "tensorfloat32"), ("xla", None)):
+        before = fs.filter_sgd.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = engine.lift_clips(short, n_cycles=N_CYCLES, device="cuda", filter_impl=impl,
+                                matpow_precision=prec or "float32")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[impl if prec is None else f"{impl} {prec}"] = {
+            "out": out, "wall_s": wall, "frames_per_s": frames / wall,
+            "launches": fs.filter_sgd.launches - before,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    kernel = runs["pallas"]["out"]
+    for name, r in runs.items():
+        r["max_abs_vs_kernel"] = max(float(np.abs(a - b).max()) for a, b in zip(r.pop("out"), kernel))
+    log(f"lift_clips on {len(short)} serving clips of T <= {engine.MATPOW_MAX_T} ({frames} "
+        f"frames, 900 cycles) by filter_impl: " + json.dumps(runs))
+    if not runs["pallas"]["launches"] > 0:
+        raise AssertionError("filter_impl='pallas' never launched filter_sgd")
+    if any(runs[k]["launches"] for k in runs if k != "pallas"):
+        raise AssertionError(f"matpow or the named plain loop launched the kernel: {runs}")
+    if not runs["matpow float32"]["max_abs_vs_kernel"] <= MATPOW_ATOL:
+        raise AssertionError("matpow at float32 disagrees with the kernel")
+    if not runs["xla"]["max_abs_vs_kernel"] <= FILTER_ATOL:
+        raise AssertionError("the plain loop on the card disagrees with the kernel")
+    try:
+        engine.lift_clips([demo_sequence(np.random.RandomState(SEED), 300)], n_cycles=1,
+                          device="cuda", filter_impl="matpow")
+    except ValueError as e:
+        log(f"matpow refuses T=320: {e}")
+    else:
+        raise AssertionError("filter_impl='matpow' took a T=320 bucket")
+
+    demo_rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as tmp:
+        seq = os.path.join(tmp, "seq.npy")
+        np.save(seq, demo_sequence(np.random.RandomState(SEED + 7), DEMO_FRAMES))
+        for label, extra in (("synthetic 64 frames", []),
+                             (f"seeded {DEMO_FRAMES} frames", ["--input", seq])):
+            out = {}
+            for device in ("cuda", "cpu"):
+                args = demo.build_parser().parse_args(
+                    extra + ["--out_dir", os.path.join(tmp, device), "--device", device])
+                before = fs.filter_sgd.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[device] = demo.main(args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if device == "cuda":
+                    launches, card_s = fs.filter_sgd.launches - before, wall
+            dxy = max(float(np.abs(a - b).max()) for a, b in zip(out["cuda"][:2], out["cpu"][:2]))
+            dz = float(np.abs(out["cuda"][2] - out["cpu"][2]).max())
+            row = {"sequence": label, "launches": launches, "card_s": card_s, "cpu_s": wall,
+                   "max_abs_xy": dxy, "max_abs_z": dz}
+            log("demo card vs cpu " + json.dumps(row))
+            if not (launches > 0 and dxy <= LIFT_ATOL and dz <= LIFT_Z_ATOL):
+                raise AssertionError(f"the demo on the card disagrees with the CPU: {row}")
+            demo_rows.append(row)
+    launches = fs.filter_sgd.launches  # end of this path
+    rng = np.random.RandomState(SEED + 8)
+    matpow = [matpow_timing(B, T, rng) for B, T in MATPOW_SHAPES]
+    return {"launches_lifting_alt": launches, "lifting_alt": {
+        "clips": len(short), "frames": frames, "by_filter_impl": runs, "demo": demo_rows,
+        "matpow_timed": matpow}}
+
+
+# options phase: bf16 serving and training, fused_d, grad flow, float64 clips
+BF16_FWD_MAX, BF16_FWD_MEAN = 0.15, 0.02  # tests/test_inference_lib.py:55-63
+BF16_LOSS_REL = 0.05  # tests/test_train_extensions.py:62
+# a bf16 step's gradient, each tensor against the float32 step's, in norm
+# relative to it (a zeroed gradient is 1 away; tests/test_torch_options.py)
+BF16_GRAD_REL = 0.75
+FUSED_GRAD_REL = 2.0**-6  # fused_d's gradient against the sequential step's
+BF16_CHECK_WINDOWS = 512
+OPT_EPOCHS = 2  # with --epochs_train_disc 1: epoch 0 trains G and validates, 1 D
+LEGACY_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                          "load_data_float64_ref.npz")
+# the port's load_data on float64 clips against the JAX package's legacy
+# route (a CPU-side reference: tests/test_torch_options.py writes it; the
+# two are bit-equal there); here numpy may sum in another order
+LEGACY_ATOL = 2.0**-20
+
+
+def bf16_forward(model, cond, X, F):
+    """A generator's bf16 forward against its float32 one on the first
+    BF16_CHECK_WINDOWS windows (the JAX package's bars), and both timed at
+    B=2048, T=192 (TF32 too, for scale)."""
+    kw = _cond_kwargs(cond)
+    net = registry.build_generator(model, 36, 252, seed=SEED, device="cuda", **kw)
+    n = min(BF16_CHECK_WINDOWS, len(X))
+    f = None if F is None else F[:n]
+    f32, _ = infer.run_inference(net, X[:n], test_feats=f, batch_size=128, num_samples=n,
+                                 device="cuda")
+    b16, _ = infer.run_inference(net, X[:n], test_feats=f, batch_size=128, num_samples=n,
+                                 device="cuda", bf16=True)
+    err = np.abs(b16 - f32)
+    idx = torch.arange(FWD_BATCH, device="cuda") % len(X)
+    xb = torch.from_numpy(X).to("cuda")[idx].transpose(1, 2)
+    fb = None if F is None else torch.from_numpy(F).to("cuda")[idx]
+    net16 = copy.deepcopy(net).to(torch.bfloat16)
+    xb16, fb16 = xb.to(torch.bfloat16), None if fb is None else fb.to(torch.bfloat16)
+    ms = {}
+    with torch.no_grad():
+        for precision in ("float32", "tensorfloat32"):
+            with infer.conv_matmul_precision(precision):
+                ms[precision] = cuda_ms(lambda: net(xb, fb), reps=5)
+        ms["bfloat16"] = cuda_ms(lambda: net16(xb16, fb16), reps=5)
+    del xb, fb, xb16, fb16, net16
+    row = {"model": model, "conditioning": cond, "windows": n,
+           "bf16_vs_float32_max": float(err.max()), "bf16_vs_float32_mean": float(err.mean()),
+           "forward_ms": ms,
+           "frames_per_s": {k: FWD_BATCH * WINDOW_T / v * 1e3 for k, v in ms.items()}}
+    log("bf16 forward " + json.dumps(row))
+    if not (err.max() < BF16_FWD_MAX and err.mean() < BF16_FWD_MEAN):
+        raise AssertionError(f"{model}: the bf16 forward misses the JAX package's bars: {row}")
+    return row
+
+
+def hold_robust_residual(x, alpha, c):
+    """The robust-loss kernel against its plain version on a residual the
+    training run produced (no profiler here: the kernel is timed at the
+    script's start); columns at alpha = 2 +- 1 ulp are reported, as in
+    ``hold_robust``."""
+    loss, dx = rl.robust_loss_and_dx(x, alpha, c)
+    xg = x.clone().requires_grad_(True)
+    want = rl.robust_lossfun_plain(xg, alpha, c)
+    (want_dx,) = torch.autograd.grad(want.sum(), xg)
+    want = want.detach()
+    a = alpha.reshape(-1)
+    two = torch.full_like(a, 2.0)
+    ulp = ((a == torch.nextafter(two, two + 1)) | (a == torch.nextafter(two, two - 1)))
+    e_loss, x_loss = _excess(loss, want, ROBUST_LOSS_TOL, ~ulp)
+    e_dx, x_dx = _excess(dx, want_dx, ROBUST_DX_TOL, ~ulp)
+    row = {"N": x.shape[0], "D": x.shape[1], "max_abs_err": max(e_loss, e_dx),
+           "max_err_over_tol": max(x_loss, x_dx), "ulp_columns": int(ulp.sum()),
+           "wrapper_ms": cuda_ms(lambda: rl.robust_loss_and_dx(x, alpha, c), reps=20)}
+    log("kernel robust_loss on the bf16 run's residual " + json.dumps(row))
+    if not (x_loss <= 1.0 and x_dx <= 1.0):
+        raise AssertionError(f"robust_loss disagrees with its plain version: {row}")
+    return row
+
+
+def bf16_train(tmp, data_dir, data):
+    """``train_gan.main --bf16 --log_grad_flow 1`` for v1 arm2wh at B=128,
+    OPT_EPOCHS epochs, ``robust_loss``'s count at 0 just before; every
+    epoch watched and the master weights, statistics and Adam state held
+    float32; the grad-flow events read back; a residual the run gave the
+    kernel held against its plain version; then ``inference.main`` from its
+    checkpoint with and without ``--bf16``.  Returns (launches, summary)."""
+    args = train_gan.build_parser().parse_args([
+        "--base_path", tmp, "--data_dir", data_dir,
+        "--model_path", os.path.join(tmp, "models"), "--exp_name", "bf16",
+        "--num_epochs", str(OPT_EPOCHS), "--epochs_train_disc", "1",
+        "--batch_size", str(TRAIN_BATCH), "--loss", "RobustLoss", "--disc_label_smooth",
+        "--bf16", "--log_grad_flow", "1", "--device", "cuda",
+    ])
+    hook, seen = epoch_watch(gan.GanConfig(loss="RobustLoss", compute_dtype="bfloat16"))
+
+    def watch(epoch, kind, trainer, losses):
+        hook(epoch, kind, trainer, losses)
+        tensors = [*trainer.generator.state_dict().values(),
+                   *trainer.discriminator.state_dict().values(),
+                   *(s for opt in (trainer.g_opt, trainer.d_opt)
+                     for st in opt.state.values() for s in st.values())]
+        odd = {str(t.dtype) for t in tensors
+               if t.is_floating_point() and t.dtype != torch.float32}
+        if trainer.dtype != torch.bfloat16 or odd:
+            raise AssertionError(f"epoch {epoch}: compute {trainer.dtype}, master dtypes {odd}")
+
+    captured = []
+    launch = rl.robust_loss_and_dx
+
+    def recording(x, alpha, scale):
+        if not captured:
+            captured.append((x.detach().clone(), alpha.detach().clone(), scale.detach().clone()))
+        return launch(x, alpha, scale)
+
+    rl.robust_loss_and_dx = recording
+    try:
+        rl.robust_lossfun.launches = 0  # counts of this path start here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = train_gan.main(args, epoch_hook=watch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rl.robust_lossfun.launches  # end of this path
+    finally:
+        rl.robust_loss_and_dx = launch
+    # the G and val batches, and the G loss of each epoch's grad flow
+    steps = (len(data["train_X"]) // TRAIN_BATCH + len(data["val_X"]) // (TRAIN_BATCH // 2)
+             + OPT_EPOCHS)
+    log(f"train_gan.main --bf16 --log_grad_flow 1: {OPT_EPOCHS} epochs in {wall:.3f} s, "
+        f"best val {best:.6f}, robust_loss launches {launches}; "
+        + "; ".join(f"epoch {e} {k} {json.dumps(l)}" for e, k, l in seen))
+    if [k for _, k, _ in seen] != ["g", "d"] or launches != steps:
+        raise AssertionError(f"bf16 training: schedule {seen}, robust_loss launched "
+                             f"{launches} times for {steps} G, val and grad-flow losses")
+    with open(os.path.join(args.model_path, "metrics_bf16.jsonl")) as f:
+        flows = [e for e in map(json.loads, f) if e.get("event") == "grad_flow"]
+    names = [n for n, _ in registry.build_generator("v1", 36, 252, device="cpu")
+             .named_parameters()]
+    if ([e["epoch"] for e in flows] != list(range(OPT_EPOCHS))
+            or any(not all(np.isfinite(e[n]) for n in names) for e in flows)):
+        raise AssertionError(f"grad-flow events: {flows}")
+    log(f"grad-flow events at epochs {[e['epoch'] for e in flows]}, {len(names)} tensors "
+        f"each, mean |g| over {min(min(e[n] for n in names) for e in flows):.3e} .. "
+        f"{max(max(e[n] for n in names) for e in flows):.3e}")
+    held = hold_robust_residual(*captured[0])
+
+    xyz = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)  # save_results writes root.pkl / bone_len.pkl to the cwd
+    try:
+        for bf16 in (False, True):
+            iargs = inference.build_parser().parse_args([
+                "--checkpoint", os.path.join(args.model_path, "lastCheckpoint_bf16.pth"),
+                "--base_path", tmp, "--data_dir", data_dir, "--infer_set", "val",
+                "--exp_name", "bf16", "--batch_size", str(TRAIN_BATCH), "--device", "cuda",
+            ] + (["--bf16"] if bf16 else []))
+            inference.main(iargs)
+            xyz[bf16] = np.asarray(io.load_binary(os.path.join(tmp, "results_bf16",
+                                                               "xyz_val.pkl")))
+    finally:
+        os.chdir(cwd)
+    if not all(np.isfinite(a).all() for a in xyz.values()):
+        raise AssertionError("inference --bf16 gave non-finite xyz")
+    e2e = mpjpe(xyz[True], xyz[False])
+    log(f"inference.main --bf16 vs float32 from the bf16-trained checkpoint: end-to-end "
+        f"xyz MPJPE {e2e:.3e} over {len(xyz[True])} windows (no bound; budget "
+        f"{MPJPE_BUDGET} at float32)")
+    return launches, {"train_s": wall, "launches": launches, "grad_flow_events": len(flows),
+                      "residual_held": held, "mpjpe_bf16_vs_float32": e2e}
+
+
+def first_moments(tr, kind):
+    """Adam's first moment after one step, (1 - b1) g, per parameter the
+    step reached: the step's gradient, on the trainer's names."""
+    module = tr.generator if kind == "g" else tr.discriminator
+    opt = tr.g_opt if kind == "g" else tr.d_opt
+    return {k: opt.state[q]["exp_avg"] for k, q in module.named_parameters() if q in opt.state}
+
+
+def worst_grad_rel(got, want):
+    """The largest distance of a tensor of ``got`` from ``want``'s, in norm
+    relative to it."""
+    return max(float((v - want[k]).norm() / want[k].norm()) for k, v in got.items())
+
+
+def step_pairs(X, Y):
+    """One G and one D step at bf16 against float32 from the same seeded
+    state (dropout 0): G's loss within BF16_LOSS_REL (the JAX package's
+    bar), D's reported; each tensor's gradient within BF16_GRAD_REL of the
+    float32 step's.  One D step fused against sequential: the loss within
+    STEP_LOSS_RTOL, the running statistics within STEP_ATOL, each gradient
+    within FUSED_GRAD_REL, the parameters within 2 lr + STEP_ATOL and their
+    share beyond STEP_ATOL reported."""
+    xb = torch.from_numpy(X[:TRAIN_BATCH]).to("cuda")
+    yb = torch.from_numpy(Y[:TRAIN_BATCH]).to("cuda")
+    cfg = gan.GanConfig(loss="RobustLoss", disc_label_smooth=True, dropout_rate=0.0)
+    loss, moments = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for kind in ("g", "d"):
+            tr = gan.GanTrainer(dataclasses.replace(cfg, compute_dtype=dtype), device="cuda")
+            loss[f"{kind} {dtype}"] = float(tr._step(kind)(xb, yb))
+            moments[f"{kind} {dtype}"] = first_moments(tr, kind)
+    rel = {k: abs(loss[f"{k} bfloat16"] - loss[f"{k} float32"]) / max(abs(loss[f"{k} float32"]), 1.0)
+           for k in ("g", "d")}
+    grad_rel = {k: worst_grad_rel(moments[f"{k} bfloat16"], moments[f"{k} float32"])
+                for k in ("g", "d")}
+    seq = gan.GanTrainer(cfg, device="cuda")
+    fused = gan.GanTrainer(dataclasses.replace(cfg, fused_d=True), device="cuda")
+    ls, lf = float(seq.d_step(xb, yb)), float(fused.d_step(xb, yb))
+    a, b = seq.discriminator.state_dict(), fused.discriminator.state_dict()
+    stat = max(float((a[k] - b[k]).abs().max()) for k in a if "running" in k)
+    params = [(a[k] - b[k]).abs() for k in a if "running" not in k and "num_batches" not in k]
+    row = {"losses": loss, "bf16_rel": rel, "bf16_grad_rel": grad_rel,
+           "fused_d": {"loss_seq": ls, "loss_fused": lf,
+                       "loss_rel": abs(lf - ls) / max(abs(ls), 1e-30), "running_stat_err": stat,
+                       "grad_rel": worst_grad_rel(first_moments(fused, "d"),
+                                                  first_moments(seq, "d")),
+                       "param_err": max(float(p.max()) for p in params),
+                       "param_share_beyond_atol": sum(int((p > STEP_ATOL).sum()) for p in params)
+                       / sum(p.numel() for p in params),
+                       "num_batches_tracked": int(b["convs.3.num_batches_tracked"])}}
+    log("bf16 and fused_d steps " + json.dumps(row))
+    f = row["fused_d"]
+    if not (rel["g"] <= BF16_LOSS_REL and max(grad_rel.values()) <= BF16_GRAD_REL
+            and f["loss_rel"] <= STEP_LOSS_RTOL and stat <= STEP_ATOL
+            and f["grad_rel"] <= FUSED_GRAD_REL
+            and f["param_err"] <= 2 * STEP_LR + STEP_ATOL
+            and f["num_batches_tracked"] == 2):
+        raise AssertionError(f"bf16 or fused_d step off: {row}")
+    return row
+
+
+def legacy_load_data(tmp):
+    """The port's load_data on float64 clips (data/synthetic.write_float64_r6d)
+    against the JAX legacy route's arrays in LEGACY_REF."""
+    d = synthetic.write_float64_r6d(os.path.join(tmp, "f64"))
+    got = data_lib.load_data(d, "arm2wh", os.path.join(tmp, "f64_stats"), "e",
+                             np.random.RandomState(23456))
+    got = {**{k: got[k] for k in ("train_X", "train_Y", "val_X", "val_Y")},
+           **{f"stat{i}": a for i, a in enumerate(got["stats"])}}
+    ref = np.load(LEGACY_REF)
+    err = {k: float(np.abs(v.astype(np.float64) - ref[k]).max()) for k, v in got.items()}
+    same = all(v.dtype == ref[k].dtype and v.shape == ref[k].shape for k, v in got.items())
+    exact = same and all(np.array_equal(v, ref[k]) for k, v in got.items())
+    log(f"load_data on float64 clips vs the JAX legacy route's reference: dtypes and shapes "
+        f"{'equal' if same else 'DIFFER'}, bit-equal {exact}, max abs err {max(err.values()):.3e}")
+    if not (same and max(err.values()) <= LEGACY_ATOL):
+        raise AssertionError(f"load_data on float64 clips: {err}")
+    return {"bit_equal": exact, "max_abs_err": max(err.values())}
+
+
+def options_phase(xyz, r6d):
+    """bf16 forwards (v1, v4_deeper+text) at B=2048; the bf16 training run
+    (``bf16_train``, the phase's main path) and bf16 inference; bf16 and
+    fused_d steps (``step_pairs``); G, D and val rates at float32 and bf16
+    and D rates fused, in turns; float64 clips through load_data.  Returns
+    (robust-loss launches of the bf16 run, summary)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_opt_") as tmp:
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        io.save_binary(list(r6d), os.path.join(data_dir, "r6d_train"))
+        io.save_binary(list(r6d[-N_VAL_CLIPS:]), os.path.join(data_dir, "r6d_val"))
+        io.save_binary(xyz, os.path.join(data_dir, "xyz_train"))
+        rng = np.random.default_rng(SEED + 3)
+        for split, n in (("train", len(r6d)), ("val", N_VAL_CLIPS)):
+            io.save_binary(rng.standard_normal((n, 512), dtype=np.float32),
+                           os.path.join(data_dir, f"{split}_sentence_embeddings"))
+        data = data_lib.load_data(data_dir, "arm2wh", os.path.join(tmp, "stats"), "opt",
+                                  np.random.RandomState(23456), base_path=tmp,
+                                  require_text=True)
+        X, Y, F = data["train_X"], data["train_Y"], data["train_feats"]
+        forwards = [bf16_forward("v1", None, X, None), bf16_forward("v4_deeper", "text", X, F)]
+        launches, train = bf16_train(tmp, data_dir, data)
+        steps = step_pairs(X, Y)
+        rates = {}
+        vX, vY = data["val_X"], data["val_Y"]
+        base = gan.GanConfig(loss="RobustLoss", disc_label_smooth=True)
+        trainers = {"float32": gan.GanTrainer(base, device="cuda"),
+                    "bfloat16": gan.GanTrainer(dataclasses.replace(
+                        base, compute_dtype="bfloat16"), device="cuda"),
+                    "fused_d": gan.GanTrainer(dataclasses.replace(base, fused_d=True),
+                                              device="cuda")}
+        for kind, bs, a, b in (("g", TRAIN_BATCH, X, Y), ("d", TRAIN_BATCH, X, Y),
+                               ("val", TRAIN_BATCH // 2, vX, vY)):
+            for name in ("float32", "bfloat16", "fused_d", "float32", "bfloat16", "fused_d"):
+                if name == "fused_d" and kind != "d":
+                    continue
+                rates.setdefault(f"{kind} {name}", []).append(timed_epochs(
+                    trainers[name], a, b, kind, bs, True, repeats=5, label=f"v1 {name}"))
+        legacy = legacy_load_data(tmp)
+    summary = {"bf16_forward": forwards, "bf16_train": train, "steps": steps,
+               "steps_per_s": rates, "float64_load_data": legacy}
+    print(json.dumps({"options": summary}), flush=True)
+    return launches, summary
+
+
 def profiled(fn):
     """Run ``fn`` under torch.profiler: (wall s, {kernel name: device s},
     device busy s).  The busy time is the union of the CUDA kernels' spans:
@@ -2157,9 +2601,15 @@ def main() -> int:
     prod, path = kernel_phase(clips, fp32)
     launches, xyz, r6d = path_phase(clips)
     t0 = time.perf_counter()
+    lift_alt = lift_alt_phase(clips)
+    log(f"lifting-alternatives phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     raw_launches, raw = raw_phase(fp32)
     log(f"raw phase: {time.perf_counter() - t0:.1f} s")
     robust_launches = train_phase(r6d)
+    t0 = time.perf_counter()
+    options_launches, options = options_phase(xyz, r6d)
+    log(f"options phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     robust_launches += conditioned_phase(xyz, r6d)
     log(f"conditioned phase: {time.perf_counter() - t0:.1f} s")
@@ -2202,6 +2652,9 @@ def main() -> int:
         # the article replay (its raw smoke at 60 cycles), its counts read alone
         **replay["filter_sgd"],
         "launches_featurizers": feat_launches["filter_sgd"],  # not on that path
+        # the lifting alternatives: filter_impl 'pallas' on the serving clips
+        # of T <= 256, and the demo (the single-clip v2 API), counts read alone
+        **lift_alt,
     }, {
         "name": "robust_loss",
         "route": "cuda",
@@ -2226,6 +2679,10 @@ def main() -> int:
         # the article replay (v2+text and the finger sweep), its counts read alone
         **replay["robust_loss"],
         "launches_featurizers": feat_launches["robust_loss"],  # not on that path
+        # train_gan.main --bf16 (v1, 2 epochs), its counts read alone, and a
+        # residual of that run held against the plain version
+        "launches_options": options_launches,
+        "options_held": options["bf16_train"]["residual_held"],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -40,9 +40,8 @@ the article's; ``--data_dir`` with the real pickles gives the real table.
 Runs on one CUDA device unless ``--device cpu``; asking for CUDA where
 there is none raises before any work.  Not ported: the root's GIF output of
 two test sequences (``seqs_to_viz``: the port's inference CLI renders
-none), its pickle cache across configs (``MHPE_LOAD_DATA_CACHE``), and its
-recovery helpers for a mirrored work directory and for reports older than
-the fixture fingerprint.
+none) and its recovery helpers for a mirrored work directory and for
+reports older than the fixture fingerprint.
 """
 
 from __future__ import annotations
@@ -70,6 +69,9 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.io import (
     load_binary,
     save_binary,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
+    data as train_data,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
     resolve_device,
@@ -668,7 +670,23 @@ def _resumed_train(cfg, model_dir, epochs, resumable):
 
 
 def main(args):
+    """Runs the replay with the clip pickles kept, read-only, across its
+    configs (``MHPE_LOAD_DATA_CACHE=1`` unless the caller set it, as the
+    root script does): each config's ``load_data`` reads the same train and
+    val pickles.  The variable and the cache are cleared on the way out."""
     resolve_device(args.device)  # refuse before any work
+    owned = "MHPE_LOAD_DATA_CACHE" not in os.environ
+    if owned:
+        os.environ["MHPE_LOAD_DATA_CACHE"] = "1"
+    try:
+        return _replay(args)
+    finally:
+        if owned:
+            os.environ.pop("MHPE_LOAD_DATA_CACHE", None)
+        train_data.clear_clips_cache()
+
+
+def _replay(args):
     work = os.path.abspath(args.work_dir)
     os.makedirs(work, exist_ok=True)
     model_dir = os.path.join(work, "models")

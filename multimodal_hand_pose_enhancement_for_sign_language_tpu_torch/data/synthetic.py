@@ -339,6 +339,22 @@ def make_r6d_dataset(
     return out
 
 
+def write_float64_r6d(data_dir: str, seed: int = 0, lengths=((100, 60), (80,))) -> str:
+    """r6d_train / r6d_val pickles of seeded float64 (T, 288) clips (numpy's
+    RandomState, so every machine writes the same bytes), the first train
+    clip with a NaN frame: the input of ``train/data.load_data``'s route for
+    clips that are not float32.  ``lengths``: the train and the val clips'
+    frame counts."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(data_dir, exist_ok=True)
+    for split, lens in zip(("train", "val"), lengths):
+        clips = [0.5 * rng.randn(T, 288) for T in lens]
+        if split == "train":
+            clips[0][lens[0] // 2, 7] = np.nan
+        save_binary(clips, os.path.join(data_dir, f"r6d_{split}"))
+    return data_dir
+
+
 def make_video_tree(root: str, height: int = 360, width: int = 480, seed: int = 0):
     """Write a tiny .mp4 per utterance of an existing OpenPose tree (layout
     ``{split}/rgb_front/raw_videos/{utt_id}.mp4``, the reference's VID_PATHS,

@@ -11,6 +11,7 @@ PyTorch counterpart of the JAX package's ``infer.py``:
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 from contextlib import contextmanager
@@ -64,7 +65,7 @@ def conv_matmul_precision(matmul_precision: str):
 
 def run_inference(model, test_X, test_feats=None, batch_size: int = 128,
                   num_samples: int = 3000, test_Y=None,
-                  matmul_precision: str = "float32", device="cuda"):
+                  matmul_precision: str = "float32", device="cuda", bf16: bool = False):
     """Eval-mode batched forward over (N, T, D) numpy inputs.
 
     ``model`` is a generator taking (B, D, T).  A conditioned one takes
@@ -74,11 +75,18 @@ def run_inference(model, test_X, test_feats=None, batch_size: int = 128,
     reference: the last one may be partial, and the loop stops at the first
     batch boundary past ``num_samples``.  ``matmul_precision`` is 'float32'
     (the default: TF32 off for convs and matmuls) or 'tensorfloat32'.
+    ``bf16`` runs the forward in bfloat16, as the JAX package's ``bf16``: a
+    copy of the model with its floating weights and running statistics in
+    bfloat16, the inputs cast to it, the outputs cast back to float32.
     """
     if needs_feats(model) and test_feats is None:
         raise ValueError("the model is conditioned on features: pass test_feats")
     dev = resolve_device(device)
     model = model.to(dev).eval()
+    dtype = torch.float32
+    if bf16:
+        dtype = torch.bfloat16
+        model = copy.deepcopy(model).to(dtype)  # the caller's model stays float32
     outputs = []
     error = 0.0
     total_steps = 0
@@ -86,10 +94,11 @@ def run_inference(model, test_X, test_feats=None, batch_size: int = 128,
     with torch.no_grad(), conv_matmul_precision(matmul_precision):
         for start in range(0, n, batch_size):
             end = min(start + batch_size, test_X.shape[0])
-            x = torch.from_numpy(np.ascontiguousarray(test_X[start:end])).to(dev)
+            x = torch.from_numpy(np.ascontiguousarray(test_X[start:end])).to(dev, dtype)
             f = None
             if test_feats is not None:
-                f = torch.from_numpy(np.ascontiguousarray(test_feats[start:end])).to(dev)
+                f = torch.from_numpy(np.ascontiguousarray(test_feats[start:end])).to(
+                    dev, dtype)
             y = model(x.transpose(1, 2), f).transpose(1, 2)
             y = y.float().cpu().numpy()
             outputs.append(y)

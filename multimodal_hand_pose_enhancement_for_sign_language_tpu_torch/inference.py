@@ -10,7 +10,10 @@ under ``--require_image``), standardizes them with the checkpoint's
 train-time statistics, runs the generator's eval forward (on CUDA unless
 ``--device cpu``), de-standardizes and writes the r6d/aa/xyz result
 pickles.  The checkpoint is a reference ``.pth`` or a JAX-package ``.pkl``.
-Rendering GIFs and the bf16 option of the root CLI are not ported.
+``--bf16`` runs the forward in bfloat16 (outputs back in float32), as the
+root CLI's.  Rendering GIFs and the root CLI's ``--matmul_precision
+bfloat16`` (XLA's one-pass bfloat16 product of float32 operands) are not
+ported.
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ def main(args):
     output, error = infer_lib.run_inference(
         model, test_X, test_feats=test_feats, batch_size=args.batch_size,
         num_samples=args.num_samples, test_Y=test_Y,
-        matmul_precision=args.matmul_precision, device=args.device,
+        matmul_precision=args.matmul_precision, device=args.device, bf16=args.bf16,
     )
     print(">>> TOTAL ERROR: ", error, flush=True)
 
@@ -122,6 +125,7 @@ def build_parser():
     p.add_argument("--model", type=str, default="v1", help="model architecture: v1, b2h, v2, v4 or v4_deeper")
     p.add_argument("--default_size", type=int, default=256, help="generator embed width the checkpoint was trained with")
     p.add_argument("--num_samples", type=int, default=3000, help="number of sequences to predict")
+    p.add_argument("--bf16", action="store_true", help="EXTENSION: run the forward in bfloat16")
     p.add_argument("--matmul_precision", type=str, default="float32", help="'float32' (TF32 off) or 'tensorfloat32'")
     p.add_argument("--device", type=str, default="cuda", help="'cuda' or 'cpu'")
     return p

@@ -8,6 +8,15 @@ the whole pipeline batched; on a CUDA device the 900-cycle filter is the
 hand-written kernel ``ops/filter_sgd``.  Per-clip noise reproduces the
 reference's per-clip RandomState(1234) draws (utils/utils.py:46,66-74).
 
+The filter is chosen by the caller's ``filter_impl``, with the JAX
+package's names: 'pallas' (the default) is ``ops/filter_sgd.filter_sgd``
+(the CUDA kernel on the card, its plain loop on the CPU), 'matpow' the
+closed form ``filtering.filter_xyz_matpow`` (T up to ``MATPOW_MAX_T``, at
+``matpow_precision``), 'xla' the plain loop on any device.  No environment
+variable selects it, so the entry points that do not name one
+(``lift_clip``, ``lift_2d_to_3d``) always run the kernel on the card.
+``lift_clips`` prints which filter ran.
+
 ``lift_2d_to_3d`` keeps the reference's partitioned, append-on-checkpoint
 file contract (utils/utils.py:120-137) so long runs resume from the last
 saved partition.
@@ -33,6 +42,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops.filter_sgd import (
     filter_sgd,
+    filter_sgd_plain,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
     resolve_device,
@@ -43,7 +53,11 @@ _PRUNE_THRESHOLD = 0.3
 _NOISE_SIGMA = 0.001
 _LR = 20.0
 _N_CYCLES = 900
-# batches left in flight on the device before the oldest is fetched
+# the longest T-bucket that filter_impl='matpow' takes: its (B, 50, T, T)
+# float32 operators are B * 50 * T^2 * 4 bytes each (1.7 GB at B=128)
+MATPOW_MAX_T = 256
+FILTER_IMPLS = ("pallas", "xla", "matpow")
+# batches enqueued on the device before the oldest is fetched
 _IN_FLIGHT = 3
 
 
@@ -63,7 +77,7 @@ def _init_core(kps, masks, noises):
     Xx, Xy, Xw = Xx * m, Xy * m, Xw * m
 
     lines0, rx, ry, rz, ax, ay, az, _, _, _ = init3d.initialization(
-        Xx, Xy, Xw, noise=noises, mask=masks
+        Xx, Xy, Xw, _NOISE_SIGMA, noise=noises, mask=masks
     )
     x0, y0, z0 = filtering.fk_from_angles(lines0, rx, ry, rz, ax, ay, az)
     return x0, y0, z0, Xx, Xy, Xw
@@ -74,9 +88,26 @@ def _interleave(Yx, Yy, Yz):
     return torch.stack((Yx, Yy, Yz), dim=-1).reshape(*Yx.shape[:2], -1)
 
 
-def _lift_batch(kps, masks, noises, n_cycles: int):
+def _lift_batch(kps, masks, noises, n_cycles: int, filter_impl: str = "pallas",
+                matpow_precision: str = "float32"):
     x0, y0, z0, Xx, Xy, Xw = _init_core(kps, masks, noises)
-    Yx, Yy, Yz = filter_sgd(x0, y0, z0, Xx, Xy, Xw, masks, _LR, n_cycles)
+    args = (x0, y0, z0, Xx, Xy, Xw, masks)
+    if filter_impl == "pallas":
+        Yx, Yy, Yz = filter_sgd(*args, _LR, n_cycles)
+    elif filter_impl == "matpow":
+        T = x0.shape[1]
+        if T > MATPOW_MAX_T:
+            raise ValueError(
+                f"filter_impl='matpow' materializes a (B, 50, {T}, {T}) operator; "
+                f"T={T} exceeds the supported bound {MATPOW_MAX_T}.  Use "
+                "filter_impl='pallas' for long-clip buckets.")
+        Yx, Yy, Yz = filtering.filter_xyz_matpow(
+            *args, learning_rate=_LR, n_cycles=n_cycles, precision=matpow_precision)
+    elif filter_impl == "xla":
+        Yx, Yy, Yz = filter_sgd_plain(*args, _LR, n_cycles)
+    else:
+        raise ValueError(f"unknown filter_impl {filter_impl!r}; expected one of "
+                         f"{FILTER_IMPLS}")
     return _interleave(Yx, Yy, Yz)
 
 
@@ -140,16 +171,24 @@ def lift_clip(kp, n_cycles: int = _N_CYCLES, device="cuda") -> np.ndarray:
 
 
 def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
-               max_batch: int = 128, device="cuda") -> list:
+               max_batch: int = 128, device="cuda", filter_impl: str = "pallas",
+               matpow_precision: str = "float32") -> list:
     """Lift a list of (T_i, 150) clips to (T_i, 150) xyz, shape-bucketed.
 
     Clips group by T rounded up to a multiple of ``t_bucket``; each group
     runs in batches of at most ``max_batch`` clips, padded to a power of
     two (``_plan``, ``_pack``).  Batches are enqueued ahead and fetched
     behind (at most ``_IN_FLIGHT`` on the device), so the host stages batch
-    k+1 while the device computes batch k.
+    k+1 while the device computes batch k.  ``filter_impl`` ('pallas', 'xla'
+    or 'matpow') picks the filter and ``matpow_precision`` ('float32',
+    'tensorfloat32' or 'bfloat16') matpow's products.
     """
     dev = resolve_device(device)
+    if filter_impl not in FILTER_IMPLS:
+        raise ValueError(f"unknown filter_impl {filter_impl!r}; expected one of "
+                         f"{FILTER_IMPLS}")
+    at = f" at {matpow_precision}" if filter_impl == "matpow" else ""
+    print(f"lift_clips: {len(clips)} clips, filter {filter_impl!r}{at} on {dev}", flush=True)
     out = [None] * len(clips)
     pending: list = []
 
@@ -161,7 +200,8 @@ def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
 
     for tb, chunk in _plan(clips, t_bucket, max_batch):
         res = _lift_batch(
-            *(torch.from_numpy(a).to(dev) for a in _pack(chunk, tb)), n_cycles
+            *(torch.from_numpy(a).to(dev) for a in _pack(chunk, tb)), n_cycles,
+            filter_impl, matpow_precision,
         )
         pending.append((chunk, res))
         if len(pending) > _IN_FLIGHT:

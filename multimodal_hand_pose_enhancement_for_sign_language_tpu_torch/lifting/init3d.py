@@ -19,6 +19,16 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import ske
 _EPS = 1e-10
 
 
+def add_noise(x, rng, epsilon):
+    """Uniform noise in [-epsilon, epsilon) from a NumPy RandomState, drawn
+    in float64 and cast to float32 (pose2Dto3D.py:12-14); ``x`` is a numpy
+    array or a tensor (the noise goes to its device)."""
+    e = np.asarray(rng.uniform(low=-epsilon, high=epsilon, size=tuple(x.shape)), "float32")
+    if isinstance(x, torch.Tensor):
+        return x + torch.from_numpy(e).to(x.device)
+    return x + e
+
+
 def bone_length_classes(Xx, Xy, mask=None):
     """Log median 2D length per bone-length class, (B, 25)
     (pose2Dto3D.py:100-116).
@@ -119,11 +129,17 @@ def compute_b(ax, ay, az, tx, ty, L):
     return bx, by, bz
 
 
-def initialization(Xx, Xy, Xw, noise=None, mask=None):
+def initialization(Xx, Xy, Xw, sigma=0.001, noise=None, rng=None, dtype="float32",
+                   mask=None):
     """Initial 3D estimate (pose2Dto3D.py:73-159) for (B, T, n) planes.
 
     ``noise``: optional (B, 3, T) uniform root noise (the reference's
-    per-clip RandomState(1234) draws, see ``engine._clip_noise``).
+    per-clip RandomState(1234) draws, see ``engine._clip_noise``);
+    otherwise, with a ``torch.Generator`` ``rng`` on the planes' device,
+    U(-sigma, sigma) draws for the roots' x, y and z, in that order, each
+    (B, T); with neither, no noise.  ``dtype`` is the reference's argument,
+    accepted for its signature: the planes' dtype decides, as in the JAX
+    package.
 
     Returns (lines (B, 25), rootsx, rootsy, rootsz (B, T, 1), anglesx,
     anglesy, anglesz (B, T, 49), Yx, Yy, Yz (B, T, n)).
@@ -141,6 +157,14 @@ def initialization(Xx, Xy, Xw, noise=None, mask=None):
         rootsx = rootsx + noise[:, 0]
         rootsy = rootsy + noise[:, 1]
         rootsz = rootsz + noise[:, 2]
+    elif rng is not None:
+        def draw():
+            u = torch.rand((B, T), generator=rng, dtype=Xx.dtype, device=Xx.device)
+            return u * (2 * sigma) - sigma
+
+        rootsx = rootsx + draw()
+        rootsy = rootsy + draw()
+        rootsz = rootsz + draw()
 
     # joint-major (B, n, T) planes: each bone step reads and writes rows
     XxT = Xx.transpose(1, 2)

@@ -99,8 +99,10 @@ def init_torchvision_(model: ResNet50, generator: torch.Generator) -> ResNet50:
 def load_resnet50(weights_path: Optional[str] = None, device="cuda",
                   generator: Optional[torch.Generator] = None) -> ResNet50:
     """ResNet-50 on ``device`` in eval mode: a torchvision ``.pth`` state
-    dict at ``weights_path`` loaded strictly, or without one torchvision's
-    initialisation from ``generator`` (seeded with ``INIT_SEED`` if None).
+    dict at ``weights_path`` loaded strictly, or, without one or for a path
+    that does not end in ``.pth`` (as the JAX package's ``load_variables``
+    decides), torchvision's initialisation from ``generator`` (seeded with
+    ``INIT_SEED`` if None).
 
     Without weights the features are meaningless, here as in the JAX
     package, and the two random towers differ: that one draws flax's init
@@ -109,7 +111,7 @@ def load_resnet50(weights_path: Optional[str] = None, device="cuda",
     with torch.device("meta"):
         model = ResNet50()
     model = model.to_empty(device=dev)
-    if weights_path:
+    if weights_path and weights_path.endswith(".pth"):
         sd = torch.load(weights_path, map_location="cpu", weights_only=True)
         model.load_state_dict(sd, strict=True)
     else:

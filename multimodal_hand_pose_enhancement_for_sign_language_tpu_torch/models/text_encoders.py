@@ -295,11 +295,10 @@ def clip_text_state(state_dict) -> dict:
 
 def load_clip_text(model_dir: str, eos_token_id, device="cuda") -> CLIPTextEncoder:
     """A CLIP snapshot's text tower on ``device``, loaded strictly; widths
-    from the weights, the head count from config.json (``text_config`` of
-    a full CLIPModel), pooling at ``eos_token_id`` (the tokenizer's)."""
+    from the weights, pooling at ``eos_token_id`` (the tokenizer's).  The
+    head count is ``hidden // 64``, as the JAX package's clip route takes
+    it, whatever config.json says (both give 8 for ViT-B/32)."""
     sd = clip_text_state(hf_snapshot.read_state(model_dir))
-    cfg = hf_snapshot.read_config(model_dir)
-    cfg = cfg.get("text_config", cfg)
     n_layers = 0
     while f"text_model.encoder.layers.{n_layers}.self_attn.q_proj.weight" in sd:
         n_layers += 1
@@ -308,7 +307,7 @@ def load_clip_text(model_dir: str, eos_token_id, device="cuda") -> CLIPTextEncod
         vocab_size=int(vocab),
         hidden_size=int(hidden),
         num_layers=n_layers,
-        num_heads=int(cfg["num_attention_heads"]),
+        num_heads=int(hidden) // 64,
         intermediate_size=int(sd["text_model.encoder.layers.0.mlp.fc1.weight"].shape[0]),
         max_position=int(sd["text_model.embeddings.position_embedding.weight"].shape[0]),
         projection_dim=int(sd["text_projection.weight"].shape[0]),

@@ -20,9 +20,16 @@ x (B, T, Din) and y (B, T, Dout), and for a conditioned generator feats,
 text (B, 512) or image features (B, T, 2000), which only the generator
 sees; a batch is transposed on the device for the (B, D, T) models.  The
 trainer holds its state in its modules and optimizers
-(``checkpoint_payload`` / ``load_checkpoint_payload`` carry it).
-Everything is float32 on one device.  Each step runs with TF32 off and
-cuDNN off, both restored afterwards: the convolutions are PyTorch's own
+(``checkpoint_payload`` / ``load_checkpoint_payload`` carry it), all
+float32 on one device.  ``compute_dtype="bfloat16"`` runs the models'
+compute in bfloat16 as the JAX package's ``_cast_in`` / ``_cast_out`` do:
+bfloat16 copies of the weights and running statistics for each step, the
+new statistics written back as float32, the master weights and Adam's
+state float32, the losses reduced in float32 on a float32 prediction.
+``fused_d`` runs the D step's fake and real passes as one forward
+(``_d_scores_fused``).  ``grad_flow`` reports the G loss's gradients
+without a step.  Each step runs with TF32 off and cuDNN off, both restored
+afterwards: the convolutions are PyTorch's own
 CUDA ones.  On an H100 cuDNN runs the 512-channel convolutions as FFTs,
 each such layer's output 2.4-6.1 times as far from float64 as PyTorch's
 own;
@@ -37,10 +44,13 @@ from __future__ import annotations
 
 import copy
 import functools
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import losses as losses_lib
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.infer import (
@@ -63,6 +73,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train.staging 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
     resolve_device,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.viz import track_grads
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+D_MOMENTUM = 0.1  # every BatchNorm of the discriminator
 
 
 def calc_motion(tensor_bdt):
@@ -98,20 +112,33 @@ class GanConfig:
     # reference hard-codes Dropout(0.5); 0.0 disables dropout everywhere
     # (train-step parity tests / ablations)
     dropout_rate: float = 0.5
+    # the D step's fake and real passes as one forward, the sequential
+    # running statistics recovered algebraically; off by default, as in the
+    # JAX package
+    fused_d: bool = False
+    # "bfloat16": the models' compute in bfloat16 (weights, optimizer state
+    # and losses stay float32)
+    compute_dtype: str = "float32"
 
 
 def _float32_step(fn):
     """Run a step with TF32 off for convs and matmuls and cuDNN off, then
-    restore both."""
+    restore both.  At a bfloat16 compute dtype oneDNN is off too, so the
+    CPU's convolutions are PyTorch's own as well: oneDNN's bfloat16
+    convolution backward returns NaN weight gradients now and then
+    (PyTorch 2.13 on the CPU: 4 of 30 D steps of tests/test_torch_options.py's
+    batch), none with it off."""
     @functools.wraps(fn)
     def wrapped(self, *args, **kwargs):
-        was = torch.backends.cudnn.enabled
+        was = torch.backends.cudnn.enabled, torch.backends.mkldnn.enabled
         torch.backends.cudnn.enabled = False
+        if self.dtype != torch.float32:
+            torch.backends.mkldnn.enabled = False
         try:
             with conv_matmul_precision("float32"):
                 return fn(self, *args, **kwargs)
         finally:
-            torch.backends.cudnn.enabled = was
+            torch.backends.cudnn.enabled, torch.backends.mkldnn.enabled = was
     return wrapped
 
 
@@ -122,7 +149,11 @@ class GanTrainer:
     seeded from it too, so nothing draws from the global generator."""
 
     def __init__(self, cfg: GanConfig, device="cuda"):
+        if cfg.compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: expected one of "
+                             f"{sorted(_DTYPES)}")
         self.cfg = cfg
+        self.dtype = _DTYPES[cfg.compute_dtype]
         self.device = resolve_device(device)
         self.generator = registry.build_generator(
             cfg.model, cfg.feature_in_dim, cfg.feature_out_dim,
@@ -169,22 +200,67 @@ class GanTrainer:
         return torch.mean(robust_lossfun(resid, alpha, scale) + log_partition)
 
     # ------------------------------------------------------------------
+    # compute dtype (the JAX package's _cast_in / _cast_out)
+    # ------------------------------------------------------------------
+    def _cast(self, a):
+        """An input at the compute dtype (``_cast_in``): bfloat16 under
+        ``compute_dtype="bfloat16"``, else as given (None stays None)."""
+        if a is None or self.dtype == torch.float32:
+            return a
+        return a.to(self.dtype)
+
+    @staticmethod
+    def _uncast(a):
+        """A bfloat16 result as float32 (``_cast_out``); others as they are."""
+        return a.float() if a.dtype == torch.bfloat16 else a
+
+    @contextmanager
+    def _at_compute_dtype(self, module):
+        """Yields ``(forward, params, buffers)``: the module's forward, its
+        parameters and its buffers by name at the compute dtype.  In float32
+        these are the module and its own tensors.  In bfloat16, casts of
+        them (the gradient reaches the float32 masters through the cast;
+        integer buffers are the module's own); a module in train mode gets
+        its new running statistics back as float32 on leaving, as
+        ``_cast_out`` returns them."""
+        if self.dtype == torch.float32:
+            yield module, dict(module.named_parameters()), dict(module.named_buffers())
+            return
+        params = {n: p.to(self.dtype) for n, p in module.named_parameters()}
+        bufs = {n: b.to(self.dtype) if b.is_floating_point() else b
+                for n, b in module.named_buffers()}
+        yield ((lambda *a: torch.func.functional_call(module, (params, bufs), a)),
+               params, bufs)
+        if module.training:
+            with torch.no_grad():
+                for n, b in module.named_buffers():
+                    if b.is_floating_point():
+                        b.copy_(bufs[n])
+
+    # ------------------------------------------------------------------
     # steps: x (B, T, Din), y (B, T, Dout), feats on the trainer's device
     # ------------------------------------------------------------------
+    def _g_loss(self, x, y, feats):
+        """The generator's training loss (train-mode G, the adversarial term
+        through an eval-mode D), shared by ``g_step`` and ``grad_flow``."""
+        self.generator.train()
+        self.discriminator.eval()
+        with self._at_compute_dtype(self.generator) as (gen, _, _):
+            y_hat = self._uncast(gen(self._cast(x.transpose(1, 2)), self._cast(feats)))
+        fake_motion = self._cast(calc_motion(y_hat))
+        with self._at_compute_dtype(self.discriminator) as (disc, _, _):
+            if self.cfg.effective_gan:
+                fake_score = self._uncast(disc(fake_motion))
+            else:
+                # reference quirk: score computed under no_grad
+                with torch.no_grad():
+                    fake_score = self._uncast(disc(fake_motion))
+        return self._reg(y_hat, y) + mse(fake_score, 1.0)
+
     @_float32_step
     def g_step(self, x, y, feats=None):
         """One generator update; returns the loss (a 0-d device tensor)."""
-        self.generator.train()
-        self.discriminator.eval()
-        y_hat = self.generator(x.transpose(1, 2), feats)
-        fake_motion = calc_motion(y_hat)
-        if self.cfg.effective_gan:
-            fake_score = self.discriminator(fake_motion)
-        else:
-            # reference quirk: score computed under no_grad
-            with torch.no_grad():
-                fake_score = self.discriminator(fake_motion)
-        g_loss = self._reg(y_hat, y) + mse(fake_score, 1.0)
+        g_loss = self._g_loss(x, y, feats)
         self.g_opt.zero_grad(set_to_none=True)
         g_loss.backward(inputs=self._g_params)
         self.g_opt.step()
@@ -193,29 +269,90 @@ class GanTrainer:
     @_float32_step
     def d_step(self, x, y, feats=None):
         """One discriminator update; returns the loss.  G runs in eval mode
-        under no_grad; D takes two sequential train-mode forwards, fake then
-        real, so its running statistics update twice in that order."""
+        under no_grad; D takes two train-mode forwards, fake then real, so
+        its running statistics update twice in that order (with
+        ``fused_d``, one forward over both and the same statistics)."""
         self.generator.eval()
         self.discriminator.train()
-        with torch.no_grad():
-            fake = self.generator(x.transpose(1, 2), feats)
+        with torch.no_grad(), self._at_compute_dtype(self.generator) as (gen, _, _):
+            fake = gen(self._cast(x.transpose(1, 2)), self._cast(feats))
         fake_motion = calc_motion(fake)
-        real_motion = calc_motion(y.transpose(1, 2))
+        real_motion = self._cast(calc_motion(y.transpose(1, 2)))
         t_fake, t_real = (0.1, 0.9) if self.cfg.disc_label_smooth else (0.0, 1.0)
-        fake_score = self.discriminator(fake_motion)
-        real_score = self.discriminator(real_motion)
-        d_loss = mse(fake_score, t_fake) + mse(real_score, t_real)
+        with self._at_compute_dtype(self.discriminator) as (disc, params, bufs):
+            if self.cfg.fused_d:
+                fake_score, real_score = self._d_scores_fused(params, bufs, fake_motion,
+                                                              real_motion)
+            else:
+                fake_score, real_score = disc(fake_motion), disc(real_motion)
+        d_loss = mse(self._uncast(fake_score), t_fake) + mse(self._uncast(real_score), t_real)
         self.d_opt.zero_grad(set_to_none=True)
         d_loss.backward()
         self.d_opt.step()
         return d_loss.detach()
 
+    def _d_scores_fused(self, params, bufs, fake_motion, real_motion):
+        """D's train-mode forward of the fake and the real pass at once.
+        Each block's conv runs on the 2B rows; each BatchNorm on the (B, 2C,
+        T) view, the two passes as two channel groups with the weights
+        repeated, so each normalizes by its own batch statistics, and both
+        update copies of the same statistics s0.  The sequential update
+        (fake, then real) is recovered as (1 - m) upd_fake + upd_real -
+        (1 - m) s0 (the JAX package's fused D step, momentum m = 0.1).
+        ``params``, ``bufs``: D's parameters and buffers by name at the
+        compute dtype; the statistics in ``bufs`` are updated in place."""
+        B = fake_motion.shape[0]
+        h = torch.cat((fake_motion, real_motion))  # (2B, C, T)
+        for i, layer in enumerate(self.discriminator.convs):
+            if isinstance(layer, nn.Conv1d):
+                h = F.conv1d(h, params[f"convs.{i}.weight"], params[f"convs.{i}.bias"],
+                             layer.stride, layer.padding)
+            elif isinstance(layer, nn.BatchNorm1d):
+                _, C, T = h.shape
+                s0 = (bufs[f"convs.{i}.running_mean"], bufs[f"convs.{i}.running_var"])
+                upd = [torch.cat((s, s)) for s in s0]
+                g = h.view(2, B, C, T).transpose(0, 1).reshape(B, 2 * C, T)
+                g = F.batch_norm(g, upd[0], upd[1], params[f"convs.{i}.weight"].repeat(2),
+                                 params[f"convs.{i}.bias"].repeat(2), True, D_MOMENTUM,
+                                 layer.eps)
+                h = g.view(B, 2, C, T).transpose(0, 1).reshape(2 * B, C, T)
+                with torch.no_grad():
+                    for s, u in zip(s0, upd):
+                        f, r = u.view(2, C)
+                        s.copy_((1 - D_MOMENTUM) * f + r - (1 - D_MOMENTUM) * s)
+                    bufs[f"convs.{i}.num_batches_tracked"].add_(2)
+            else:  # Dropout, LeakyReLU
+                h = layer(h)
+        return h[:B], h[B:]
+
     @_float32_step
     def val_step(self, x, y, feats=None):
         self.generator.eval()
-        with torch.no_grad():
-            y_hat = self.generator(x.transpose(1, 2), feats)
+        with torch.no_grad(), self._at_compute_dtype(self.generator) as (gen, _, _):
+            y_hat = self._uncast(gen(self._cast(x.transpose(1, 2)), self._cast(feats)))
             return self._reg(y_hat, y)
+
+    @_float32_step
+    def grad_flow(self, x, y, feats=None) -> dict:
+        """Per-parameter mean and max |g| of the G training loss's gradients
+        on one batch, keyed by the generator's parameter names, without a
+        step: the modules' weights, running statistics and dropout stream
+        are as they were (dropout draws from a generator seeded 0, as the
+        JAX package's grad_flow draws from PRNGKey(0))."""
+        before = {n: b.clone() for n, b in self.generator.named_buffers()}
+        set_dropout_generator(self.generator,
+                              torch.Generator(device=self.device).manual_seed(0))
+        try:
+            loss = self._g_loss(x, y, feats)
+            names = [n for n, _ in self.generator.named_parameters()]
+            grads = torch.autograd.grad(loss, self._g_params, allow_unused=True)
+        finally:
+            set_dropout_generator(self.generator, self.dropout_generator)
+            with torch.no_grad():
+                for n, b in self.generator.named_buffers():
+                    b.copy_(before[n])
+        return track_grads.grad_flow_stats(
+            {n: g for n, g in zip(names, grads) if g is not None})
 
     def _step(self, kind):
         return {"g": self.g_step, "d": self.d_step, "val": self.val_step}[kind]

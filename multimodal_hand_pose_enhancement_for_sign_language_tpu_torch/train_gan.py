@@ -11,9 +11,13 @@ same on-disk contracts (``{exp}{pipeline}_preprocess_core.npz``, best/last
 checkpoints, here as ``.pth``), with the steps run eagerly on one CUDA
 device (``--device cpu`` for the plain PyTorch path).  ``--epoch_scan``
 keeps the dataset on the device and sends only the permutation per epoch.
+``--bf16`` runs the models' compute in bfloat16 (weights, optimizer state
+and losses float32); ``--log_grad_flow N`` logs the G loss's per-parameter
+mean and max |gradient| every N epochs, on the first training batch.
 
-Flags of features that are not ported yet are accepted and raise
-``NotImplementedError``; none is ignored.
+``--prng_impl``, the JAX CLI's choice of dropout PRNG, has no counterpart
+(dropout masks come from a ``torch.Generator``): it is accepted and raises
+``NotImplementedError``; no flag is ignored.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import os
 import shutil
 
 import numpy as np
+import torch
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
     checkpoint as ckpt_lib,
@@ -42,10 +47,8 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.metrics 
     MetricsSink,
 )
 
-# flag -> (is it set?, the ROADMAP item that ports its feature)
+# flag -> (is it set?, why it is refused)
 _NOT_PORTED = {
-    "bf16": (lambda a: a.bf16, "queue 1: compute_dtype bfloat16"),
-    "log_grad_flow": (lambda a: a.log_grad_flow != 0, "queue 1: grad_flow with viz/track_grads"),
     "prng_impl": (lambda a: a.prng_impl is not None,
                   "no counterpart: dropout masks come from a torch.Generator"),
 }
@@ -112,6 +115,7 @@ def main(args, epoch_hook=None):
         effective_gan=args.effective_gan,
         default_size=args.default_size,
         window_t=train_X.shape[1],
+        compute_dtype="bfloat16" if args.bf16 else "float32",
     )
     trainer = GanTrainer(cfg, device=args.device)
     if args.epoch_scan:
@@ -146,6 +150,7 @@ def main(args, epoch_hook=None):
 
     curr_best = 1e9
     prev_save_epoch = 0
+    last_grad_flow_epoch = -(10**9)
     for epoch in range(args.num_epochs):
         if epoch > 100 and (epoch - prev_save_epoch) > args.patience:
             print(f"early stopping at: {epoch - 1}", flush=True)
@@ -207,6 +212,18 @@ def main(args, epoch_hook=None):
                 epoch_hook(epoch, "g", trainer,
                            {"loss_train_gen": g_loss, "loss_val_gen": val_loss})
 
+        if args.log_grad_flow and (epoch - last_grad_flow_epoch) >= args.log_grad_flow:
+            last_grad_flow_epoch = epoch
+            bs = min(args.batch_size, len(train_X))
+            x, y, f = (None if a is None else
+                       torch.from_numpy(np.ascontiguousarray(a[:bs])).to(trainer.device)
+                       for a in (train_X, train_Y, train_feats))
+            stats = trainer.grad_flow(x, y, f)
+            worst = max(stats.values(), key=lambda s: s["max"])
+            sink.log({"epoch": epoch, "event": "grad_flow",
+                      **{k: v["ave"] for k, v in stats.items()}})
+            print(f"grad-flow: max |g| {worst['max']:.3e}", flush=True)
+
         # per-epoch reshuffle (reference train_gan.py:113-119)
         I = np.arange(len(train_X))
         rng.shuffle(I)
@@ -250,8 +267,8 @@ def build_parser():
     parser.add_argument('--loss', type=str, default="L1", help='Loss to optimize the generator over')
     parser.add_argument('--use_wandb', action="store_true", help="log to wandb in addition to local JSONL")
     parser.add_argument('--effective_gan', action="store_true", help="EXTENSION: give the adversarial term a real gradient (the reference detaches it)")
-    parser.add_argument('--bf16', action="store_true", help="EXTENSION of the JAX CLI: bfloat16 compute (not ported yet)")
-    parser.add_argument('--log_grad_flow', type=int, default=0, help='log per-layer gradient stats every N epochs (not ported yet)')
+    parser.add_argument('--bf16', action="store_true", help="EXTENSION: run model compute in bfloat16 (params/optimizer stay f32)")
+    parser.add_argument('--log_grad_flow', type=int, default=0, help='log per-layer gradient stats every N epochs (0 = off); the wandb.watch analog')
     parser.add_argument('--default_size', type=int, default=256, help='generator embed width (reference default 256)')
     parser.add_argument('--epoch_scan', action="store_true", help="EXTENSION: keep the dataset resident in device memory; only the permutation crosses per epoch")
     parser.add_argument('--device', type=str, default="cuda", help="'cuda' or 'cpu'")

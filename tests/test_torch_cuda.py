@@ -17,7 +17,10 @@ CPU's float32 ones, and TF32 must miss that bound.  The featurizer towers
 (cuBLAS and cuDNN, no kernel of the port) at mid widths against the CPU on
 the same seeded weights: within 2^-15 of the output's largest value, the
 generators' raw-output rule, or for ResNet-50 where cuDNN breaks it, within
-twice the CPU's float32 error against float64.
+twice the CPU's float32 error against float64.  The lifting alternatives:
+``filter_xyz`` and the single-clip v2 API launch the filter kernel; the
+closed form ``filter_xyz_matpow`` at 'float32' within 3e-4 of the kernel
+(the JAX package's matpow bound, test_pallas_kernels.py:62-82).
 """
 
 import numpy as np
@@ -26,6 +29,10 @@ import torch
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.infer import (
     conv_matmul_precision,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import (
+    engine,
+    filtering,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import (
     clip_vision,
@@ -491,3 +498,74 @@ def test_featurizer_tower_on_the_card_is_float32(cuda, name):
     with torch.no_grad():
         ref = cpu.double()(inputs[0].double())
     assert float((got - ref).abs().max()) <= 2 * float((want - ref).abs().max())
+
+
+@pytest.mark.cuda
+def test_filter_xyz_launches_the_kernel(cuda):
+    """The public ``filtering.filter_xyz`` on CUDA tensors is the kernel:
+    one more launch, the plain version's result within 2e-4."""
+    ins = _inputs(4, 100, cuda, live=3)
+    before = fs.filter_sgd.launches
+    got = filtering.filter_xyz(*ins[:6], 20.0, 300, mask=ins[6])
+    torch.cuda.synchronize()
+    assert fs.filter_sgd.launches == before + 1
+    want = fs.filter_sgd_plain(*ins, 20.0, 300)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g[:3], w[:3], atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(8, 64), (4, 256)])
+def test_filter_matpow_float32_matches_the_kernel(cuda, B, T):
+    """The closed form at 'float32' (TF32 off) within 3e-4 of the kernel on
+    the card at 900 cycles; at 'tensorfloat32' it is reported, not held."""
+    ins = _inputs(B, T, cuda, live=B)
+    want = fs.filter_sgd(*ins, 20.0, 900)
+    got = filtering.filter_xyz_matpow(*ins, 20.0, 900, precision="float32")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=3e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [64, 1920, 5000])
+def test_v2_single_clip_runs_the_kernel(cuda, T):
+    """The single-clip v2 API is a batch of one through the kernel (one
+    block a row, or segments past 4,320 steps): launches counted, within
+    2e-4 of the plain loop on the same snapshot."""
+    rng = np.random.RandomState(T)
+    lines = rng.uniform(-3, -1, 25).astype(np.float32)
+    roots = [rng.randn(T, 1).astype(np.float32) for _ in range(3)]
+    angles = [rng.randn(T, 49).astype(np.float32) for _ in range(3)]
+    tar = [rng.randn(T, 50).astype(np.float32) for _ in range(2)]
+    w = rng.rand(T, 50).astype(np.float32)
+    before = fs.filter_sgd.launches
+    got = filtering.backpropagation_based_filtering_v2(lines, *roots, *angles, *tar, w,
+                                                       nCycles=900, device=cuda)
+    torch.cuda.synchronize()
+    plan = fs.launch_plan(1, T)
+    # a segmented row relaunches every H cycles
+    assert fs.filter_sgd.launches - before == (-(-900 // plan[5]) if len(plan) == 6 else 1)
+    x0, y0, z0 = filtering.fk_from_angles(*(torch.from_numpy(a)[None].to(cuda)
+                                            for a in (lines, *roots, *angles)))
+    want = fs.filter_sgd_plain(x0, y0, z0, *(torch.from_numpy(a)[None].to(cuda)
+                                             for a in (*tar, w)),
+                               torch.ones(1, T, device=cuda), 20.0, 900)
+    for g, w_ in zip(got, want):
+        assert g.shape == (T, 50)
+        torch.testing.assert_close(g, w_[0], atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lifting_entry_points_run_the_kernel_whatever_the_environment(cuda, monkeypatch):
+    """The JAX package's switches (MHPE_LIFT_FILTER=xla, MHPE_LIFT_PALLAS=0)
+    select nothing in the port: ``lift_clip`` and ``lift_clips`` without a
+    ``filter_impl`` launch the kernel on the card, one launch a batch."""
+    monkeypatch.setenv("MHPE_LIFT_FILTER", "xla")
+    monkeypatch.setenv("MHPE_LIFT_PALLAS", "0")
+    rng = np.random.RandomState(3)
+    clips = [rng.rand(T, 150).astype(np.float32) for T in (40, 100)]
+    before = fs.filter_sgd.launches
+    engine.lift_clip(clips[0], n_cycles=20, device=cuda)
+    engine.lift_clips(clips, n_cycles=20, device=cuda)
+    assert fs.filter_sgd.launches - before == 3
+

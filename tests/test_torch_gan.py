@@ -350,9 +350,9 @@ def test_dropout_comes_from_the_trainers_generator(rng):
     assert other != first
 
 
-@pytest.mark.parametrize("field", ["compute_dtype", "fused_d"])
+@pytest.mark.parametrize("field", ["prng_impl"])
 def test_config_has_no_field_of_an_unported_feature(field):
-    """Such a field arrives with its feature; until then the CLI refuses
-    the flag (tests/test_torch_train_cli.py)."""
+    """A feature without a counterpart has no field; the CLI refuses its
+    flag (tests/test_torch_train_cli.py)."""
     with pytest.raises(TypeError):
         t_gan.GanConfig(**{field: True})

@@ -9,12 +9,14 @@
   chip_step_precision.py imports them.
 * chip_smoke.py refuses to run (nonzero exit, no result line) on a machine
   without CUDA.
-* The featurizers need none of what the card's machine lacks: with
-  ``transformers``, ``tokenizers``, ``safetensors``, ``regex``,
-  ``torchvision``, ``clip``, ``cv2`` and PIL blocked too, every port module
-  imports and the three text methods and both image features run from
-  snapshots the port writes itself; statically, those packages are
-  imported only inside functions (the hub routes and video decoding).
+* The featurizers and the demo need none of what the card's machine lacks:
+  with ``transformers``, ``tokenizers``, ``safetensors``, ``regex``,
+  ``torchvision``, ``clip``, ``cv2``, PIL, ``matplotlib`` and ``h5py``
+  blocked too, every port module imports, the three text methods and both
+  image features run from snapshots the port writes itself, and the demo
+  runs its synthetic sequence; statically, those packages are imported
+  only inside functions (the hub routes, video decoding, the grad-flow
+  plot, an .h5 input).
 """
 
 import ast
@@ -102,7 +104,8 @@ def test_port_imports_and_loads_a_jax_checkpoint_without_jax(tmp_path):
                  "data.datasets", "data.skeleton_preproc", "runtime.native",
                  "process_dataset", "article_replay", "data.tokenizers",
                  "models.hf_snapshot", "models.text_encoders", "models.clip_vision",
-                 "models.resnet"):
+                 "models.resnet", "demo", "viz.track_grads",
+                 "losses.robust.fit_partition_spline"):
         assert f"{PORT}.{name}" in info["modules"], name
     want = convert.generator_state_dict(variables)
     got = np.load(out)
@@ -113,7 +116,7 @@ def test_port_imports_and_loads_a_jax_checkpoint_without_jax(tmp_path):
 
 # absent on the card's machine: imported only inside the functions that need them
 CARD_ABSENT = ("transformers", "tokenizers", "safetensors", "regex", "torchvision", "clip",
-               "cv2", "PIL")
+               "cv2", "PIL", "matplotlib", "h5py")
 
 _FEATURIZER_CHILD = r"""
 import importlib, json, pkgutil, sys
@@ -130,7 +133,7 @@ open(d + "/t.txt", "w").write("".join(f"c{{i}}-x {{s}}\n" for i, s in enumerate(
 synthetic.write_bert_snapshot(d + "/bert", S, hidden_size=16, num_layers=1, num_heads=2,
                               intermediate_size=32)
 synthetic.write_clip_snapshot(d + "/clip", S, projection_dim=8,
-    text=dict(hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32),
+    text=dict(hidden_size=64, num_hidden_layers=1, num_attention_heads=1, intermediate_size=32),
     vision=dict(hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
                 intermediate_size=32, image_size=32, patch_size=16))
 shapes = {{m: text.obtain_embeddings(d + "/t.txt", ["c0-x", "c1-x"], method=m,
@@ -140,6 +143,9 @@ shapes = {{m: text.obtain_embeddings(d + "/t.txt", ["c0-x", "c1-x"], method=m,
 crops = [np.zeros((2, 3, 120, 120, 2), np.uint8)]
 shapes["resnet"] = video.obtain_feats_crops_resnet(crops, None, device="cpu")[0].shape
 shapes["clip_image"] = video.obtain_feats_crops_clip(crops, d + "/clip", device="cpu")[0].shape
+from {port} import demo
+shapes["demo"] = demo.main(demo.build_parser().parse_args(
+    ["--out_dir", d + "/demo", "--n_cycles", "5", "--device", "cpu"]))[0].shape
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
 print(json.dumps({{"shapes": shapes, "leaked": leaked}}))
@@ -155,7 +161,8 @@ def test_featurizers_run_without_the_hub_packages(tmp_path):
     info = json.loads(proc.stdout.strip().splitlines()[-1])
     assert info["leaked"] == []
     assert info["shapes"] == {"BERTsentence": [2, 16], "BERTword": [2, 512, 16],
-                              "clip": [2, 8], "resnet": [2, 2000], "clip_image": [2, 16]}
+                              "clip": [2, 8], "resnet": [2, 2000], "clip_image": [2, 16],
+                              "demo": [64, 50]}
 
 
 def _top_level_imports(path):

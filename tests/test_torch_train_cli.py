@@ -106,17 +106,29 @@ def test_load_data_is_the_jax_packages(workdir, tmp_path):
 
 @pytest.mark.parametrize("bad", ["float64", "list"])
 def test_load_data_refuses_clips_that_are_not_float32(workdir, tmp_path, bad):
-    """One way of assembling a split: what it cannot take raises."""
+    """Clips that are not float32 arrays take the JAX package's legacy
+    route: float64 clips give its float32 arrays bit for bit; clips that
+    are not arrays at all raise there as in the JAX package, before
+    anything is written."""
     clips = load_binary(os.path.join(workdir, "video_data", "r6d_train.pkl"))
     clips = ([c.astype(np.float64) for c in clips] if bad == "float64"
              else [c.tolist() for c in clips])
     os.makedirs(tmp_path / "video_data")
     for split in ("train", "val"):
         save_binary(clips, str(tmp_path / "video_data" / f"r6d_{split}"))
-    with pytest.raises(ValueError, match="float32"):
-        t_data.load_data("video_data", "arm2wh", str(tmp_path / "m"), "x",
-                         np.random.RandomState(23456), base_path=str(tmp_path))
-    assert not (tmp_path / "m").exists()  # refused before anything is written
+    args = ("video_data", "arm2wh")
+    kw = dict(base_path=str(tmp_path))
+    if bad == "list":
+        for mod, out in ((t_data, "m"), (j_data, "j")):
+            with pytest.raises(AttributeError):
+                mod.load_data(*args, str(tmp_path / out), "x", np.random.RandomState(23456), **kw)
+        assert not (tmp_path / "m").exists()  # refused before anything is written
+        return
+    got = t_data.load_data(*args, str(tmp_path / "m"), "x", np.random.RandomState(23456), **kw)
+    want = j_data.load_data(*args, str(tmp_path / "j"), "x", np.random.RandomState(23456), **kw)
+    for k in ("train_X", "train_Y", "val_X", "val_Y"):
+        assert got[k].dtype == np.float32
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_load_data_drops_nan_clips_and_keeps_wh2wh_arm_nans(workdir, tmp_path):
@@ -274,9 +286,7 @@ def test_losses_follow_the_root_cli_without_dropout(workdir, monkeypatch, epoch_
         np.testing.assert_allclose(a, b, rtol=LOSS_RTOL, err_msg=key)
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("bf16", True), ("log_grad_flow", 2), ("prng_impl", "rbg"),
-])
+@pytest.mark.parametrize("flag,value", [("prng_impl", "rbg")])
 def test_unported_flags_raise_and_name_the_roadmap(workdir, flag, value):
     args = _args(t_cli, workdir, "nope", device="cpu", **{flag: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

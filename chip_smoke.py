@@ -111,6 +111,22 @@ one (loss 1e-5 relative, statistics 5e-6, gradients 2^-6); G, D and val rates at
 fused, in turns; float64 clips through ``load_data`` against the JAX legacy
 route's arrays (``tests/data/load_data_float64_ref.npz``).
 
+Mesh (after training): the multi-device paths (``parallel/``) in-process
+on a one-rank NCCL group (a FileStore rendezvous), each against the same
+path without a mesh on the card: the DP and TP G and D steps of v1 arm2wh at
+B=128 at the step tolerances (the mask: entries whose gradient lies within
+4x the two evaluations' disagreement) and their val steps, the classifier's
+DP step (1024x10 bidirectional, B=4), sharded ``run_inference`` at B=2048
+(2^-15 of the largest output), the serving clips' sharded ``lift_clips``
+(1e-6; ``filter_sgd`` launches counted), ``filter_xyz_time_sharded`` on an
+8,704-frame clip at 900 cycles against ``filter_sgd`` with an all-ones mask
+(2e-4), one DP G step traced (its collectives, NCCL's device time, one
+``robust_loss`` launch); then ``train_gan`` (2 epochs) and ``inference``
+under ``python -m torch.distributed.run --standalone --nproc_per_node=1``
+against the one-process CLIs (epoch losses 1e-3 relative, L1 1e-5, xyz
+MPJPE within the 1e-3 budget).  ``nccl_two_ranks_one_card()`` (not run by
+``main``) starts two NCCL ranks on the one card and reports how that ends.
+
 Prints one line per phase, then a JSON line describing each kernel (with
 its launch plan and, for the filter, the raw path's launches and long rows,
 its bound over the live elements and
@@ -136,6 +152,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.overrides import TorchFunctionMode
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import (
@@ -178,6 +195,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
     kinematics,
     robust_loss as rl,
     rotations,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
+    mesh as mesh_lib,
+    sequence,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.runtime import native
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
@@ -2520,6 +2541,372 @@ def options_phase(xyz, r6d):
     return launches, summary
 
 
+# mesh phase: the multi-device paths (parallel/) on a one-rank NCCL group.
+# The round's machine has one card and NCCL takes one rank per device
+# (``nccl_two_ranks_one_card``), so every collective below is a real NCCL
+# call over a group of one; across more ranks the paths are held on the
+# CPU over gloo (tests/test_torch_mesh.py).
+MESH_BATCH = 128
+MESH_FWD_BATCH = 2048
+MESH_LONG_T = 8704  # the raw phase's longest video
+MESH_CLI_EPOCHS = 2  # with --epochs_train_disc 1: epoch 0 trains G and validates, 1 D
+# the CLIs' epoch losses under torchrun against one process: the JAX
+# package's bound for a DP epoch against one device (tests/test_multichip.py:58).
+# A one-rank DP G step rounds its BatchNorm otherwise than PyTorch's own
+# (5.6% of v1's G entries under the step check's sign-noise mask on the
+# card), so the 4 G steps of epoch 0 leave weights a few lr apart, which
+# the D epoch then reads: 1.07e-4 relative on the card, past the 1e-4 of
+# the JAX package's single DP step (:42) that this bound first was.
+MESH_CLI_LOSS_RTOL = 1e-3
+
+
+def _mesh_step(kind, x, y, mesh, tp=False):
+    """(loss, state_dict, gradients) of one ``kind`` step of v1 arm2wh at
+    full width from the seeded weights, dropout 0, with or without a mesh;
+    split weights and their gradients gathered into the reference layout."""
+    cfg = gan.GanConfig(loss="RobustLoss", disc_label_smooth=True, batch_size=x.shape[0],
+                        dropout_rate=0.0)
+    tr = gan.GanTrainer(cfg, device="cuda", mesh=mesh, tp=tp)
+    loss = float(tr._step(kind)(torch.from_numpy(x).to("cuda"), torch.from_numpy(y).to("cuda")))
+    module = tr.generator if kind == "g" else tr.discriminator
+    grads = {}
+    for name, p in module.named_parameters():
+        if p.grad is None:
+            continue
+        owner = module.get_submodule(name.rsplit(".", 1)[0])
+        g = p.grad
+        if hasattr(owner, "tp_dim") and name.endswith("weight"):
+            g = mesh_lib.gather_split(g, owner.tp_dim, mesh)
+        grads[name] = g.double().cpu()
+    sd = tr.checkpoint_payload(0)["state_dict" if kind == "g" else "discriminator"]
+    return loss, {k: v.cpu() for k, v in sd.items()}, grads
+
+
+def hold_same_step(head, got, want, lr):
+    """One step with a mesh against the same step without, both on the card:
+    the loss at STEP_LOSS_RTOL, running statistics at STEP_ATOL, parameters
+    at STEP_ATOL outside a mask of the entries whose gradient lies within
+    STEP_NOISE_FACTOR of the two evaluations' largest disagreement in its
+    tensor (a sign Adam's first step may take either way; such an entry
+    within 2 lr + STEP_ATOL), the mask at most STEP_MASKED_SHARE."""
+    loss, sd, grads = got
+    loss0, sd0, grads0 = want
+    worst = worst_masked = worst_stat = grad_err = grad_max = 0.0
+    masked = total = 0
+    for k, w in sd0.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        diff = (sd[k].float() - w.float()).abs()
+        if k not in grads0:
+            worst_stat = max(worst_stat, float(diff.max()))
+            continue
+        e = float((grads[k] - grads0[k]).abs().max())
+        grad_err, grad_max = max(grad_err, e), max(grad_max, float(grads0[k].abs().max()))
+        keep = grads0[k].abs() >= STEP_NOISE_FACTOR * e
+        masked += int((~keep).sum())
+        total += keep.numel()
+        worst = max(worst, float((diff * keep).max()))
+        worst_masked = max(worst_masked, float((diff * ~keep).max()))
+    row = {**head, "loss_mesh": loss, "loss": loss0,
+           "loss_rel_err": abs(loss - loss0) / max(abs(loss0), 1e-30),
+           "running_stat_err": worst_stat, "grad_err": grad_err, "grad_abs_max": grad_max,
+           "param_err_outside_mask": worst, "param_err_inside_mask": worst_masked,
+           "masked_share": masked / max(total, 1)}
+    log("mesh step " + json.dumps(row))
+    if not (row["loss_rel_err"] <= STEP_LOSS_RTOL and worst_stat <= STEP_ATOL
+            and worst <= STEP_ATOL and worst_masked <= 2 * lr + STEP_ATOL
+            and row["masked_share"] <= STEP_MASKED_SHARE):
+        raise AssertionError(f"the mesh step {head} disagrees with the plain one: {row}")
+    return row
+
+
+def _mesh_cls_step(net, x, y, mesh):
+    tr = clf_train.ClassifierTrainer(net, learning_rate=CLS_LR, weight_decay=CLS_WD,
+                                     mesh=mesh)
+    p0 = {k: v.detach().double().cpu() for k, v in net.state_dict().items()}
+    loss, acc = tr.train_step(torch.from_numpy(x).to("cuda"),
+                              torch.from_numpy(y - 1).to("cuda"))
+    grads = {k: v.grad.double().cpu() + CLS_WD * p0[k]
+             for k, v in net.state_dict(keep_vars=True).items()}
+    return float(loss), {k: v.detach().cpu() for k, v in net.state_dict().items()}, grads, int(acc)
+
+
+def _cli_losses(model_path, exp):
+    with open(os.path.join(model_path, f"metrics_{exp}.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [(k, r[k]) for r in recs for k in ("loss_train_gen", "loss_val_gen",
+                                              "loss_train_disc") if k in r]
+
+
+def _torchrun(module, argv, tmp):
+    """``python -m torch.distributed.run --standalone --nproc_per_node=1 -m
+    module argv``; returns its standard output."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m", f"{train_gan.__package__}.{module}", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    log(f"torchrun {module}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {module} failed: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def mesh_cli(tmp, data_dir):
+    """train_gan and inference under torchrun (one NCCL rank on the card)
+    against the one-process CLIs on the same data."""
+    common = ["--base_path", tmp, "--data_dir", data_dir, "--num_epochs",
+              str(MESH_CLI_EPOCHS), "--epochs_train_disc", "1", "--batch_size",
+              str(MESH_BATCH), "--loss", "RobustLoss", "--disc_label_smooth", "--device", "cuda"]
+    one = os.path.join(tmp, "one")
+    args = train_gan.build_parser().parse_args(common + ["--model_path", one])
+    train_gan.main(args)
+    out = _torchrun("train_gan", common + ["--model_path", os.path.join(tmp, "ranked")], tmp)
+    if "data-parallel over Mesh(data=1, model=1, rank=0, device=cuda:0)" not in out:
+        raise AssertionError(f"torchrun train_gan ran no mesh: {out[-2000:]}")
+    a = _cli_losses(one, "experiment")
+    b = _cli_losses(os.path.join(tmp, "ranked"), "experiment")
+    rel = max(abs(x[1] - y[1]) / max(abs(x[1]), 1e-30) for x, y in zip(a, b))
+    log(f"train_gan under torchrun vs one process: losses {b} vs {a}, rel err {rel:.3e}")
+    if [k for k, _ in a] != [k for k, _ in b] or len(a) != 3 or rel > MESH_CLI_LOSS_RTOL:
+        raise AssertionError("train_gan under torchrun disagrees with one process")
+
+    ckpt = os.path.join(one, "experiment_checkpoint.pth")
+    argv = ["--checkpoint", ckpt, "--data_dir", data_dir, "--infer_set", "val",
+            "--device", "cuda"]
+    cwd = os.getcwd()
+    os.chdir(tmp)  # save_results writes root.pkl / bone_len.pkl to the cwd
+    try:
+        err_one = inference.main(inference.build_parser().parse_args(
+            argv + ["--base_path", os.path.join(tmp, "inf_one")]))
+    finally:
+        os.chdir(cwd)
+    out = _torchrun("inference", argv + ["--base_path", os.path.join(tmp, "inf_ranked")], tmp)
+    err_ranked = float(re.search(r">>> TOTAL ERROR:\s+(\S+)", out).group(1))
+    xyz = [io.load_binary(os.path.join(tmp, d, "results_experiment", "xyz_val.pkl"))
+           for d in ("inf_one", "inf_ranked")]
+    m = mpjpe(*xyz)
+    log(f"inference under torchrun vs one process: L1 {err_ranked} vs {err_one}, "
+        f"xyz MPJPE {m:.3e}")
+    if not (abs(err_ranked - err_one) <= STEP_LOSS_RTOL * abs(err_one) and m <= MPJPE_BUDGET):
+        raise AssertionError("inference under torchrun disagrees with one process")
+    return {"train_losses": b, "loss_rel_err": rel, "inference_l1": err_ranked,
+            "inference_mpjpe": m}
+
+
+def nccl_group():
+    """A one-rank NCCL process group on cuda:0 (a FileStore rendezvous)."""
+    torch.cuda.set_device(0)
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_nccl_")
+    os.close(fd)
+    os.unlink(path)
+    dist.init_process_group("nccl", store=dist.FileStore(path, 1), rank=0, world_size=1)
+    return path
+
+
+def mesh_phase(clips=None, xyz=None, r6d=None):
+    """The multi-device paths on a one-rank NCCL group, each held against
+    the same path without a mesh on the card.  Run alone it builds the
+    kernels and lifts the serving clips first.  Returns (filter_sgd
+    launches, robust_loss launches, the phase's rows)."""
+    if clips is None:
+        build_kernels(("filter_sgd", "robust_loss"))
+        clips = synthetic_clips(np.random.RandomState(SEED), N_CLIPS)
+        xyz, r6d = lift_to_r6d(clips)
+    t_phase = time.perf_counter()
+    rows = {}
+    store = nccl_group()
+    try:
+        mesh = mesh_lib.get_mesh()
+        log(f"mesh: {mesh} over backend {dist.get_backend()}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+            data_dir = os.path.join(tmp, "data")
+            os.makedirs(data_dir)
+            io.save_binary(list(r6d), os.path.join(data_dir, "r6d_train"))
+            io.save_binary(list(r6d[-N_VAL_CLIPS:]), os.path.join(data_dir, "r6d_val"))
+            io.save_binary(xyz, os.path.join(data_dir, "xyz_train"))  # save_results' root
+            data = data_lib.load_data(data_dir, "arm2wh", os.path.join(tmp, "stats"), "mesh",
+                                      np.random.RandomState(23456), base_path=tmp)
+            X, Y = data["train_X"][:MESH_BATCH], data["train_Y"][:MESH_BATCH]
+
+            # the plain trainer's G, D and val steps and G step time first
+            xt, yt = torch.from_numpy(X).to("cuda"), torch.from_numpy(Y).to("cuda")
+            cfg = gan.GanConfig(loss="RobustLoss", disc_label_smooth=True)
+            plain = {kind: _mesh_step(kind, X, Y, None) for kind in ("g", "d")}
+            plain_tr = gan.GanTrainer(cfg, device="cuda")
+            val = float(plain_tr.val_step(xt, yt))
+            plain_ms = cuda_ms(lambda: plain_tr.g_step(xt, yt), reps=5)
+
+            # the mesh path's G, D and val steps, DP and TP, held against them
+            rl.robust_lossfun.launches = 0  # counts of the mesh steps start here
+            rows["steps"] = [hold_same_step({"step": kind, "tp": tp, "batch": MESH_BATCH},
+                                            _mesh_step(kind, X, Y, mesh, tp), plain[kind],
+                                            STEP_LR)
+                             for kind in ("g", "d") for tp in (False, True)]
+            for tp in (False, True):
+                got = float(gan.GanTrainer(cfg, device="cuda", mesh=mesh, tp=tp).val_step(xt, yt))
+                log(f"mesh val step (tp {tp}): {got} against {val}")
+                if abs(got - val) > STEP_LOSS_RTOL * abs(val):
+                    raise AssertionError(f"the mesh val step disagrees: {got} vs {val}")
+
+            # one DP G step traced: its collectives, NCCL's device time, the
+            # robust loss launched; then timed against the plain step
+            dp = gan.GanTrainer(cfg, device="cuda", mesh=mesh)
+            dp.g_step(xt, yt)  # warm
+            before = rl.robust_lossfun.launches
+            traced = traced_collectives(lambda: dp.g_step(xt, yt))
+            traced["robust_loss_launches"] = rl.robust_lossfun.launches - before
+            traced["g_step_ms_mesh"] = cuda_ms(lambda: dp.g_step(xt, yt), reps=5)
+            robust_launches = rl.robust_lossfun.launches  # end of the mesh steps
+            traced["g_step_ms_plain"] = plain_ms
+            rows["traced_g_step"] = traced
+            log("mesh traced G step " + json.dumps(traced))
+            if traced["robust_loss_launches"] != 1:
+                raise AssertionError("the traced DP G step did not launch robust_loss once")
+            if traced["collectives"] <= 0:
+                raise AssertionError("the traced DP G step recorded no collective")
+
+            # the classifier's DP step at full width against its plain step
+            x, y = (np.ascontiguousarray(r6d_windows(r6d)[:CLS_STEP_BATCH]),
+                    np.arange(1, CLS_STEP_BATCH + 1, dtype=np.int64))
+            base = clf_models.build_classifier("lstm", device="cpu", dropout=0.0,
+                                               **_lstm_kwargs(x.shape[-1], True))
+            got = _mesh_cls_step(copy.deepcopy(base).to("cuda"), x, y, mesh)
+            want = _mesh_cls_step(copy.deepcopy(base).to("cuda"), x, y, None)
+            del base
+            if got[3] != want[3]:
+                raise AssertionError(f"classifier accuracy {got[3]} vs {want[3]}")
+            rows["classifier"] = hold_same_step(
+                {"step": "classifier", "batch": CLS_STEP_BATCH, "layers": CLS_LAYERS,
+                 "bidirectional": True}, got[:3], want[:3], CLS_LR)
+
+            # sharded inference at B=2048 against the plain forward
+            Xf = np.resize(data["train_X"], (MESH_FWD_BATCH,) + X.shape[1:])
+            net = registry.build_generator("v1", 36, 252, seed=SEED, device="cuda")
+            fwd = {}
+            for name, m in (("plain", None), ("mesh", mesh)):
+                infer.run_inference(net, Xf, batch_size=MESH_FWD_BATCH, device="cuda", mesh=m)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fwd[name] = infer.run_inference(net, Xf, batch_size=MESH_FWD_BATCH,
+                                                num_samples=MESH_FWD_BATCH, device="cuda",
+                                                mesh=m)[0]
+                fwd[name + "_s"] = time.perf_counter() - t0
+            err = float(np.abs(fwd["mesh"] - fwd["plain"]).max())
+            atol = FWD_REL_ATOL * float(np.abs(fwd["plain"]).max())
+            rows["inference"] = {"batch": MESH_FWD_BATCH, "max_abs_err": err, "atol": atol,
+                                 "mesh_s": fwd["mesh_s"], "plain_s": fwd["plain_s"]}
+            log("mesh inference " + json.dumps(rows["inference"]))
+            if not err <= atol:
+                raise AssertionError(f"sharded inference off by {err}")
+
+            # the serving clips' sharded lifting against the plain one
+            fs.filter_sgd.launches = 0  # counts of the sharded lifting start here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sharded = engine.lift_clips(clips, n_cycles=N_CYCLES, device="cuda", mesh=mesh)
+            torch.cuda.synchronize()
+            lift_s = time.perf_counter() - t0
+            filter_launches = fs.filter_sgd.launches
+            err = max(float(np.abs(a - b).max()) for a, b in zip(sharded, xyz))
+            n_batches = len(engine._plan(clips))
+            rows["lifting"] = {"clips": len(clips), "max_abs_err": err, "seconds": lift_s,
+                               "filter_sgd_launches": filter_launches, "batches": n_batches}
+            log("mesh lifting " + json.dumps(rows["lifting"]))
+            if err > 1e-6 or filter_launches != n_batches:
+                raise AssertionError(f"sharded lifting: {rows['lifting']}")
+
+            # the time-sharded filter on one long clip against the kernel
+            rows["time_sharded"] = time_sharded_check(mesh)
+
+            rows["cli"] = mesh_cli(tmp, data_dir)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.unlink(store)
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return filter_launches, robust_launches, rows
+
+
+def traced_collectives(fn):
+    """Run ``fn`` under torch.profiler: its wall time, the collectives it
+    called (c10d's host records), and the NCCL kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls, device = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if "nccl" in e.name.lower():
+                device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
+        elif e.name.startswith(("nccl:", "c10d::")):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return {"wall_s": wall, "collectives": sum(calls.values()),
+            "collective_calls": calls, "nccl_kernels_s": device,
+            "nccl_device_s": sum(device.values())}
+
+
+def r6d_windows(r6d):
+    """(N, 192, 288) r6d windows of the clips (the classifier's input)."""
+    return windows.make_equal_len(r6d, method="cutting+reflect")[:, :, :288].astype(np.float32)
+
+
+def time_sharded_check(mesh):
+    """``filter_xyz_time_sharded`` at T=MESH_LONG_T and 900 cycles against
+    ``filter_sgd`` on the same row with an all-ones mask, timed."""
+    rng = np.random.RandomState(SEED + 5)
+    kp = rng.uniform(100, 500, size=(MESH_LONG_T, 150)).astype(np.float32)
+    kp[:, 2::3] = rng.uniform(0.5, 1.0, size=(MESH_LONG_T, 50))
+    kps, masks, noises = (torch.from_numpy(a).to("cuda")
+                          for a in engine._pack([(0, kp)], MESH_LONG_T))
+    planes = engine._init_core(kps, masks, noises)
+    t0 = time.perf_counter()
+    got = sequence.filter_xyz_time_sharded(*(p[0] for p in planes), mesh, n_cycles=N_CYCLES)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    ones = torch.ones_like(masks)
+    before = fs.filter_sgd.launches
+    want = fs.filter_sgd(*planes, ones, LR, N_CYCLES)
+    kernel_ms = cuda_ms(lambda: fs.filter_sgd(*planes, ones, LR, N_CYCLES), reps=3)
+    fs.filter_sgd.launches = before  # a comparison, not the path
+    err = max(float((g - w[0]).abs().max()) for g, w in zip(got, want))
+    row = {"T": MESH_LONG_T, "n_cycles": N_CYCLES, "max_abs_err": err,
+           "sharded_s": sharded_s, "kernel_ms": kernel_ms}
+    log("mesh time-sharded filter " + json.dumps(row))
+    if not err <= FILTER_ATOL:
+        raise AssertionError(f"the time-sharded filter is off by {err}")
+    return row
+
+
+def nccl_two_ranks_one_card(timeout=120):
+    """Two NCCL ranks on cuda:0: start them under torchrun and report how it
+    ends (NCCL takes one rank per device).  Not part of ``main``."""
+    code = ("import os, torch, torch.distributed as dist; torch.cuda.set_device(0); "
+            "dist.init_process_group('nccl'); t = torch.ones(4, device='cuda'); "
+            "dist.all_reduce(t); torch.cuda.synchronize(); print('all_reduce', t.tolist())")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl2_") as tmp:
+        path = os.path.join(tmp, "two_ranks.py")
+        with open(path, "w") as f:
+            f.write(code)
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run",
+                                 "--standalone", "--nproc_per_node=2", path],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, rc = proc.communicate(timeout=timeout)[0], proc.returncode
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)  # torchrun and both ranks
+            out, rc = proc.communicate()[0], "timeout"
+    said = [ln for ln in out.splitlines()
+            if any(w in ln for w in ("Duplicate", "NCCL", "all_reduce", "Error"))]
+    log(f"two NCCL ranks on one card: exit {rc}; " + " | ".join(said[-6:]))
+    return rc, said
+
+
 def profiled(fn):
     """Run ``fn`` under torch.profiler: (wall s, {kernel name: device s},
     device busy s).  The busy time is the union of the CUDA kernels' spans:
@@ -2607,6 +2994,7 @@ def main() -> int:
     raw_launches, raw = raw_phase(fp32)
     log(f"raw phase: {time.perf_counter() - t0:.1f} s")
     robust_launches = train_phase(r6d)
+    mesh_filter, mesh_robust, mesh_rows = mesh_phase(clips, xyz, r6d)
     t0 = time.perf_counter()
     options_launches, options = options_phase(xyz, r6d)
     log(f"options phase: {time.perf_counter() - t0:.1f} s")
@@ -2655,6 +3043,11 @@ def main() -> int:
         # the lifting alternatives: filter_impl 'pallas' on the serving clips
         # of T <= 256, and the demo (the single-clip v2 API), counts read alone
         **lift_alt,
+        # the serving clips' lifting sharded over a one-rank NCCL mesh, its
+        # counts read alone, and the time-sharded filter held against it
+        "launches_mesh": mesh_filter,
+        "mesh_lift_s": mesh_rows["lifting"]["seconds"],
+        "mesh_time_sharded": mesh_rows["time_sharded"],
     }, {
         "name": "robust_loss",
         "route": "cuda",
@@ -2683,6 +3076,10 @@ def main() -> int:
         # residual of that run held against the plain version
         "launches_options": options_launches,
         "options_held": options["bf16_train"]["residual_held"],
+        # the mesh phase's DP and TP G and val steps and its traced DP G
+        # step (one NCCL rank), its counts read alone
+        "launches_mesh": mesh_robust,
+        "mesh_traced_g_step": mesh_rows["traced_g_step"],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,5 +17,17 @@ text and video featurizers and their tokenizers),
 ``train/`` (the GAN and classifier trainers, their data, optimizers and
 checkpoints), ``infer.py`` (enhancement forward and result pickles) and the
 ``lift``, ``train_gan``, ``inference``, ``classifier_main`` and
-``classifier_mlp_main`` CLIs.
+``classifier_mlp_main`` CLIs; ``parallel/`` spreads training, serving and
+lifting over the ranks of a ``torch.distributed`` group
+(``port.get_mesh``, imported on first use).
 """
+
+
+def __getattr__(name):
+    if name == "get_mesh":
+        from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel.mesh import (
+            get_mesh,
+        )
+
+        return get_mesh
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,7 +3,8 @@
 PyTorch counterpart of the JAX package's ``infer.py``:
   * ``run_inference`` -- the reference inference.py:90-126: eval-mode
     batched forward with L1 accounting, the partial final batch and the
-    ``num_samples`` cap,
+    ``num_samples`` cap; with a ``mesh``, batches sharded over its ranks
+    (the JAX package's replacement for nn.DataParallel, inference.py:45-47),
   * ``save_results`` -- utils/utils.py:388-427: r6d/aa/xyz pickles
     (+ root.pkl / bone_len.pkl in the working directory) with the same file
     contract, through the batched geometry ops.
@@ -33,6 +34,9 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.registr
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
     kinematics,
     rotations,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
+    mesh as mesh_lib,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constants import (
     FEATURE_MAP,
@@ -65,7 +69,8 @@ def conv_matmul_precision(matmul_precision: str):
 
 def run_inference(model, test_X, test_feats=None, batch_size: int = 128,
                   num_samples: int = 3000, test_Y=None,
-                  matmul_precision: str = "float32", device="cuda", bf16: bool = False):
+                  matmul_precision: str = "float32", device="cuda", bf16: bool = False,
+                  mesh=None):
     """Eval-mode batched forward over (N, T, D) numpy inputs.
 
     ``model`` is a generator taking (B, D, T).  A conditioned one takes
@@ -78,10 +83,16 @@ def run_inference(model, test_X, test_feats=None, batch_size: int = 128,
     ``bf16`` runs the forward in bfloat16, as the JAX package's ``bf16``: a
     copy of the model with its floating weights and running statistics in
     bfloat16, the inputs cast to it, the outputs cast back to float32.
+    ``mesh`` (``parallel/mesh.get_mesh``; every rank calls with the same
+    inputs): a batch whose rows divide 'data' is split, each rank runs its
+    rows and the outputs are all-gathered; the others (the partial last
+    batch) run whole on every rank.  Every rank returns the whole output.
     """
     if needs_feats(model) and test_feats is None:
         raise ValueError("the model is conditioned on features: pass test_feats")
     dev = resolve_device(device)
+    if mesh is not None:
+        mesh.check_device(dev)
     model = model.to(dev).eval()
     dtype = torch.float32
     if bf16:
@@ -99,7 +110,12 @@ def run_inference(model, test_X, test_feats=None, batch_size: int = 128,
             if test_feats is not None:
                 f = torch.from_numpy(np.ascontiguousarray(test_feats[start:end])).to(
                     dev, dtype)
-            y = model(x.transpose(1, 2), f).transpose(1, 2)
+            if mesh is not None and x.shape[0] % mesh.shape["data"] == 0:
+                x, f = mesh_lib.local_rows((x, f), mesh)[0]
+                y = model(x.transpose(1, 2), f).transpose(1, 2)
+                y = mesh_lib.gather_rows(y, mesh.data_group, mesh.shape["data"])
+            else:
+                y = model(x.transpose(1, 2), f).transpose(1, 2)
             y = y.float().cpu().numpy()
             outputs.append(y)
             total_steps += 1

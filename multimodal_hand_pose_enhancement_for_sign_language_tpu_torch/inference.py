@@ -13,7 +13,10 @@ pickles.  The checkpoint is a reference ``.pth`` or a JAX-package ``.pkl``.
 ``--bf16`` runs the forward in bfloat16 (outputs back in float32), as the
 root CLI's.  Rendering GIFs and the root CLI's ``--matmul_precision
 bfloat16`` (XLA's one-pass bfloat16 product of float32 operands) are not
-ported.
+ported.  Launched by ``python -m torch.distributed.run``, every rank loads
+the windows, the batches are sharded over a mesh of all ranks
+(``run_inference(mesh=...)``, NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``) and rank 0 alone prints and writes the results.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.io import save_binary
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import registry
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
+    multihost,
+)
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train.checkpoint import (
     load_generator_state,
 )
@@ -39,8 +45,15 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constant
 
 
 def main(args):
+    """Enhance the split; returns the mean L1 error (every rank)."""
     if args.require_text and args.require_image:
         raise ValueError("--require_text and --require_image exclude each other")
+    mesh, device = multihost.start(args.device)
+    with multihost.main_output_only(mesh):
+        return _infer(args, mesh, device)
+
+
+def _infer(args, mesh, device):
     pipeline = args.pipeline
     _, feature_out_dim = FEATURE_MAP[pipeline]
     r6d_path = f"{args.data_dir}/r6d_{args.infer_set}.pkl"
@@ -84,21 +97,23 @@ def main(args):
     model = registry.build_generator(
         args.model, test_X.shape[-1], feature_out_dim,
         require_text=args.require_text, require_image=args.require_image,
-        default_size=args.default_size, device=args.device,
+        default_size=args.default_size, device=device,
     )
     model.load_state_dict(load_generator_state(args.checkpoint), strict=True)
     output, error = infer_lib.run_inference(
         model, test_X, test_feats=test_feats, batch_size=args.batch_size,
         num_samples=args.num_samples, test_Y=test_Y,
-        matmul_precision=args.matmul_precision, device=args.device, bf16=args.bf16,
+        matmul_precision=args.matmul_precision, device=device, bf16=args.bf16, mesh=mesh,
     )
     print(">>> TOTAL ERROR: ", error, flush=True)
+    if mesh is not None and mesh.rank != 0:
+        return error
 
     output = (output * sY + mY).astype(np.float32)
     xyz_path = infer_lib.save_results(
         input_feats[: output.shape[0]], output, pipeline, args.base_path,
         data_dir=args.data_dir, tag=args.exp_name, infer_set=args.infer_set,
-        device=args.device,
+        device=device,
     )
     # row j of the result pickles comes from clip orig_idx[j] of the split
     if xyz_path:
@@ -133,3 +148,4 @@ def build_parser():
 
 if __name__ == "__main__":
     main(build_parser().parse_args())
+    multihost.finish()

@@ -8,7 +8,8 @@ For each split, reads the 2D keypoint clips ``{data_dir}/xy_{split}.pkl``
 this stage itself with ``--lift``), lifts them to 3D with the
 partitioned, resumable ``lift_2d_to_3d`` into ``xyz_{split}.pkl``, then
 converts xyz -> axis-angle -> r6d into ``r6d_{split}.pkl`` (and, for the
-train split, the mean bone lengths into ``lengths_train.pkl``).
+train split, the mean bone lengths into ``lengths_train.pkl``).  With a
+``mesh`` the lifting is spread over its ranks and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -29,12 +30,17 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
 )
 
 
-def lift_split(data_dir, split, n_partitions=40, n_cycles=900, device="cuda"):
+def lift_split(data_dir, split, n_partitions=40, n_cycles=900, device="cuda", mesh=None):
+    """Lift one split and convert it; returns its r6d clips (on rank 0
+    under a mesh, None on the others, which write nothing)."""
     feats = load_binary(os.path.join(data_dir, f"xy_{split}.pkl"))
     xyz_path = os.path.join(data_dir, f"xyz_{split}.pkl")
     xyz = lift_engine.lift_2d_to_3d(
-        feats, xyz_path, nPartitions=n_partitions, n_cycles=n_cycles, device=device
+        feats, xyz_path, nPartitions=n_partitions, n_cycles=n_cycles, device=device,
+        mesh=mesh,
     )
+    if mesh is not None and mesh.rank != 0:
+        return None
     print(f"[{split}] lifted -> {xyz_path}", flush=True)
     if split == "train":
         save_binary(kinematics.get_bone_length(xyz),

@@ -20,6 +20,13 @@ variable selects it, so the entry points that do not name one
 ``lift_2d_to_3d`` keeps the reference's partitioned, append-on-checkpoint
 file contract (utils/utils.py:120-137) so long runs resume from the last
 saved partition.
+
+With a ``mesh`` (``parallel/mesh.get_mesh``; every rank calls with the same
+clips) each batch is padded to a multiple of 'data', each rank lifts its
+rows (the kernel on the card) and the results are all-gathered: the
+multi-device replacement for the reference's Pool(24) over clips, as the
+JAX package's ``shard_map`` over clips.  Only rank 0 writes
+``lift_2d_to_3d``'s pickles.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.io import (
     load_binary,
@@ -43,6 +51,9 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops.filter_sgd import (
     filter_sgd,
     filter_sgd_plain,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
+    mesh as mesh_lib,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
     resolve_device,
@@ -147,13 +158,14 @@ def _plan(clips, t_bucket: int = 64, max_batch: int = 128) -> list:
     ]
 
 
-def _pack(chunk, tb: int):
+def _pack(chunk, tb: int, n_data: int = 1):
     """One batch as host arrays: kps (nb, tb, 150), masks (nb, tb), noises
-    (nb, 3, tb), nb the chunk size padded to a power of two (padded rows
-    are all-masked)."""
+    (nb, 3, tb), nb the chunk size padded to a power of two, then to a
+    multiple of ``n_data`` (padded rows are all-masked)."""
     nb = 1
     while nb < len(chunk):
         nb *= 2
+    nb = mesh_lib.pad_to_multiple(nb, n_data)
     kps = np.zeros((nb, tb, 150), np.float32)
     masks = np.zeros((nb, tb), np.float32)
     noises = np.zeros((nb, 3, tb), np.float32)
@@ -172,7 +184,7 @@ def lift_clip(kp, n_cycles: int = _N_CYCLES, device="cuda") -> np.ndarray:
 
 def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
                max_batch: int = 128, device="cuda", filter_impl: str = "pallas",
-               matpow_precision: str = "float32") -> list:
+               matpow_precision: str = "float32", mesh=None) -> list:
     """Lift a list of (T_i, 150) clips to (T_i, 150) xyz, shape-bucketed.
 
     Clips group by T rounded up to a multiple of ``t_bucket``; each group
@@ -181,14 +193,21 @@ def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
     behind (at most ``_IN_FLIGHT`` on the device), so the host stages batch
     k+1 while the device computes batch k.  ``filter_impl`` ('pallas', 'xla'
     or 'matpow') picks the filter and ``matpow_precision`` ('float32',
-    'tensorfloat32' or 'bfloat16') matpow's products.
+    'tensorfloat32' or 'bfloat16') matpow's products.  ``mesh``: each rank
+    lifts its rows of every batch (module docstring); every rank returns
+    all clips.
     """
     dev = resolve_device(device)
+    n_data = 1
+    if mesh is not None:
+        mesh.check_device(dev)
+        n_data = mesh.shape["data"]
     if filter_impl not in FILTER_IMPLS:
         raise ValueError(f"unknown filter_impl {filter_impl!r}; expected one of "
                          f"{FILTER_IMPLS}")
     at = f" at {matpow_precision}" if filter_impl == "matpow" else ""
-    print(f"lift_clips: {len(clips)} clips, filter {filter_impl!r}{at} on {dev}", flush=True)
+    on = f"{dev}" if mesh is None else f"{mesh}"
+    print(f"lift_clips: {len(clips)} clips, filter {filter_impl!r}{at} on {on}", flush=True)
     out = [None] * len(clips)
     pending: list = []
 
@@ -199,10 +218,14 @@ def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
             out[i] = res[slot, : c.shape[0]]
 
     for tb, chunk in _plan(clips, t_bucket, max_batch):
-        res = _lift_batch(
-            *(torch.from_numpy(a).to(dev) for a in _pack(chunk, tb)), n_cycles,
-            filter_impl, matpow_precision,
-        )
+        batch = _pack(chunk, tb, n_data)
+        if mesh is None:
+            batch = [torch.from_numpy(a).to(dev) for a in batch]
+        else:
+            batch = mesh_lib.local_rows(batch, mesh)[0]
+        res = _lift_batch(*batch, n_cycles, filter_impl, matpow_precision)
+        if mesh is not None:
+            res = mesh_lib.gather_rows(res, mesh.data_group, n_data)
         pending.append((chunk, res))
         if len(pending) > _IN_FLIGHT:
             drain(pending.pop(0))
@@ -244,13 +267,17 @@ class _CheckpointWriter(threading.Thread):
 
 
 def lift_2d_to_3d(feats, filename: str = "feats_3d", nPartitions: int = 40,
-                  n_cycles: int = _N_CYCLES, device="cuda"):
+                  n_cycles: int = _N_CYCLES, device="cuda", mesh=None):
     """Partitioned, resumable lifting over a clip list (utils/utils.py:120-137):
     results are appended to ``filename`` one partition at a time, so a
     crashed run resumes after the last partition on disk.  Partition k's
     pickle is written by a background thread while partition k+1 lifts,
     joined before the next write so the file is always a consistent prefix.
+    ``mesh``: ``lift_clips`` over it; rank 0 alone writes, and every rank
+    waits at a barrier for its last write before returning, so a resumed
+    run on any rank reads a complete file.
     """
+    write = mesh is None or mesh.rank == 0
     feats_3d = []
     if os.path.exists(filename):
         print(f" -> Found file with name {filename}. Appending results.", flush=True)
@@ -265,10 +292,12 @@ def lift_2d_to_3d(feats, filename: str = "feats_3d", nPartitions: int = 40,
                 continue
             if min(idx * (i + 1), len(feats)) <= done:
                 continue  # partition already lifted in a previous run
-            lifted = lift_clips(chunk, n_cycles=n_cycles, device=device)
+            lifted = lift_clips(chunk, n_cycles=n_cycles, device=device, mesh=mesh)
             # rebinding (not mutating) keeps the list handed to the writer
             # thread unchanged
             feats_3d = feats_3d + lifted
+            if not write:
+                continue
             if writer is not None:
                 writer.join()
             writer = _CheckpointWriter(feats_3d, filename)
@@ -277,4 +306,6 @@ def lift_2d_to_3d(feats, filename: str = "feats_3d", nPartitions: int = 40,
     finally:
         if writer is not None:
             writer.join()
+    if mesh is not None:
+        dist.barrier()
     return feats_3d

@@ -11,6 +11,9 @@ statistics; momentum 0.1 (0.01 in the feature branches); eps 1e-5.
 Dropout is ``Dropout`` below, ``nn.Dropout`` at the same indices whose
 mask comes from a ``torch.Generator`` that the trainer owns, so a training
 run is a function of its seed and never touches the global generator.
+Under a data-parallel mesh each rank draws the mask of the global batch
+from that generator (seeded alike on every rank) and keeps its own rows,
+so a sharded step drops what the single-device step drops.
 """
 
 from __future__ import annotations
@@ -25,16 +28,24 @@ class Dropout(nn.Dropout):
     """``nn.Dropout`` whose mask is drawn from ``self.generator`` (set with
     ``set_dropout_generator``; None means the global generator).  The
     generator must live on the device of the input.  Eval mode and p = 0
-    pass the input through."""
+    pass the input through.  ``self.rows`` (a ``parallel.mesh.RowShard``,
+    set with ``set_dropout_rows``) places the input as block ``index`` of
+    ``count`` equal row blocks of the global batch: the global batch's mask
+    is drawn and the block's rows kept."""
 
     generator = None
+    rows = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device,
-                          dtype=x.dtype) < keep
+        shape, lo = x.shape, 0
+        if self.rows is not None and self.rows.count > 1:
+            shape = (self.rows.count * x.shape[0],) + tuple(x.shape[1:])
+            lo = self.rows.index * x.shape[0]
+        mask = torch.rand(shape, generator=self.generator, device=x.device,
+                          dtype=x.dtype)[lo:lo + x.shape[0]] < keep
         return x * mask / keep if keep > 0 else torch.zeros_like(x)
 
 
@@ -43,6 +54,13 @@ def set_dropout_generator(module: nn.Module, generator) -> None:
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def set_dropout_rows(module: nn.Module, rows) -> None:
+    """Make every ``Dropout`` under ``module`` place its input by ``rows``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.rows = rows
 
 
 class ConvBlock(nn.Sequential):

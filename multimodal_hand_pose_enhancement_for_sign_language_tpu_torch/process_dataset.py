@@ -27,6 +27,12 @@ a video directory whose crops pickle is already in ``--data_dir`` (written
 by ``--crops``, perhaps on a machine with cv2), ``--vid_feats`` featurizes
 those crops.  This module imports no torch until a device stage runs, so
 that the ingestion's spawn workers start fast.
+
+Launched by ``python -m torch.distributed.run``, rank 0 does everything
+above and the lifting of each split is spread over a mesh of all ranks
+(NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``): the other ranks
+wait for rank 0 to name each split it lifts, lift their rows of its
+batches with it, and write nothing.
 """
 
 from __future__ import annotations
@@ -55,10 +61,11 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constant
 )
 
 
-def process_split(args, split: str, pool=None):
+def process_split(args, split: str, pool=None, mesh=None):
     """One split's pickles, its utterances read in ``pool`` (or a pool of
     its own); returns its counts and the wall time of each stage (None for
-    a split without a json directory)."""
+    a split without a json directory).  ``mesh``: the lifting over it, the
+    other ranks told first (``_announce``)."""
     json_dir = os.path.join(args.dataset_path, DATA_PATHS[split])
     if not os.path.isdir(json_dir):
         print(f"[{split}] no json dir at {json_dir}; skipping", flush=True)
@@ -132,8 +139,9 @@ def process_split(args, split: str, pool=None):
         from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import lift
 
         t0 = time.perf_counter()
+        _announce(mesh, split)
         lift.lift_split(args.data_dir, split, n_partitions=args.n_partitions,
-                        n_cycles=args.n_cycles, device=args.device)
+                        n_cycles=args.n_cycles, device=args.device, mesh=mesh)
         stats["lift_s"] = time.perf_counter() - t0
         print(f"[{split}] lifted and converted in {stats['lift_s']:.3f} s", flush=True)
     return stats
@@ -179,18 +187,58 @@ def resolve_templates(args):
     return args
 
 
+def _announce(mesh, split) -> None:
+    """Rank 0 names the split it lifts next (None: no more)."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([split], src=0)
+
+
+def _follow(args, mesh) -> dict:
+    """A rank but 0: lift each split rank 0 names, with it."""
+    import torch.distributed as dist
+
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import lift
+
+    done = {}
+    while True:
+        named = [None]
+        dist.broadcast_object_list(named, src=0)
+        if named[0] is None:
+            return done
+        lift.lift_split(args.data_dir, named[0], n_partitions=args.n_partitions,
+                        n_cycles=args.n_cycles, device=args.device, mesh=mesh)
+        done[named[0]] = None
+
+
 def main(args) -> dict:
-    """Every split's pickles; returns {split: process_split's stats}."""
+    """Every split's pickles; returns {split: process_split's stats} (on a
+    rank but 0 of a torchrun launch, {split: None} for the splits it
+    helped lift)."""
     if args.lift or args.vid_feats or args.text_method != "precomputed":
         from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
             resolve_device,
         )
 
         resolve_device(args.device)  # fail before the ingestion, not after it
+    mesh = None
+    if "RANK" in os.environ:  # a torchrun launch: rank 0 works, the others lift with it
+        from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
+            multihost,
+        )
+
+        mesh, _ = multihost.start(args.device)
+        if mesh is not None and mesh.rank != 0:
+            with multihost.main_output_only(mesh):
+                return _follow(args, mesh)
     mkdir(args.data_dir)
     # one worker pool for the three splits: its workers start once
     with openpose.worker_pool(args.workers) as pool:
-        return {split: process_split(args, split, pool) for split in ("test", "val", "train")}
+        stats = {split: process_split(args, split, pool, mesh)
+                 for split in ("test", "val", "train")}
+    _announce(mesh, None)
+    return stats
 
 
 def build_parser():
@@ -217,3 +265,9 @@ def build_parser():
 
 if __name__ == "__main__":
     main(resolve_templates(build_parser().parse_args()))
+    if "RANK" in os.environ:  # a torchrun launch: tear its process group down
+        from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
+            multihost,
+        )
+
+        multihost.finish()

@@ -12,6 +12,15 @@ runs at float32: TF32 off for cuDNN, whose RNNs would otherwise multiply in
 TF32, and for cuBLAS; both switches restored afterwards.  Inter-layer
 dropout draws from the trainer's own ``torch.Generator`` on the module's
 device.
+
+With a ``mesh`` (``parallel/mesh.get_mesh``) the train step is the JAX
+trainer's data-parallel one (tests/test_multichip.py): the weights are
+broadcast at start, each rank computes its rows of the global batch (its
+dropout masks cut from the global batch's), and the gradients, the loss and
+the correct count go into one bucket, summed over 'data': the gradients and
+the loss are then divided into global means, the count stays a global sum.
+A batch whose rows do not divide 'data' runs whole on every rank.  The
+eval step runs the whole batch on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from itertools import zip_longest
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.nn import functional as F
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.io import load_binary
@@ -33,6 +43,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.infer import (
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.layers import (
     set_dropout_generator,
+    set_dropout_rows,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
+    mesh as mesh_lib,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train.optim import (
     make_optimizer,
@@ -110,12 +124,19 @@ class ClassifierTrainer:
     """Steps and epoch loops around a classifier module, on the module's
     device.  ``optimizer`` is 'Adam', 'AdamW' or 'NAdam' as the JAX package
     builds them (``train/optim.py``); ``dropout_seed`` seeds the generator
-    of the inter-layer dropout masks."""
+    of the inter-layer dropout masks; ``mesh`` makes the train step data
+    parallel (module docstring)."""
 
     def __init__(self, module, learning_rate: float = 1e-4, weight_decay: float = 1e-3,
                  optimizer: str = "Adam", last_timestep_only: bool = True,
-                 dropout_seed: int = 2):
+                 dropout_seed: int = 2, mesh=None):
         self.module = module
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.check_device(next(module.parameters()).device)
+            self._rows = mesh_lib.RowShard()
+            set_dropout_rows(module, self._rows)
+            mesh_lib.replicate(module, mesh)
         self.last_timestep_only = last_timestep_only
         self.device = next(module.parameters()).device
         self.opt = make_optimizer(optimizer, module.parameters(), learning_rate,
@@ -134,15 +155,41 @@ class ClassifierTrainer:
     # steps: x (B, T, D) or (B, D), labels (B,) 0-based, on the device
     # ------------------------------------------------------------------
     def train_step(self, x, labels):
-        """One update; returns (loss, correct count) as device tensors."""
+        """One update; returns (loss, correct count) as device tensors.
+        Under a mesh ``x``/``labels`` are the global batch (or
+        ``shard_batch``'s rows), and both results are global."""
+        sharded = False
+        if self.mesh is not None:
+            (x, labels), sharded = mesh_lib.local_rows((x, labels), self.mesh)
+            self._rows.set(self.mesh if sharded else None)
         self.module.train()
         with conv_matmul_precision("float32"):
             logits = self._logits(x)
             loss = F.cross_entropy(logits, labels)
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
+            correct = (logits.detach().argmax(-1) == labels).sum()
+            loss, correct = self._reduce(loss.detach(), correct, sharded)
             self.opt.step()
-        return loss.detach(), (logits.detach().argmax(-1) == labels).sum()
+        return loss, correct
+
+    def _reduce(self, loss, correct, sharded):
+        """Sum the gradients, the loss and the correct count over 'data' in
+        one bucket; the gradients and the loss become means, and so does
+        the count of a replicated batch (every rank counted all of it)."""
+        if self.mesh is None:
+            return loss, correct
+        grads = [p.grad for p in self.module.parameters() if p.grad is not None]
+        bucket = torch.cat([g.reshape(-1) for g in grads]
+                           + [loss.reshape(1).float(), correct.reshape(1).float()])
+        dist.all_reduce(bucket, group=self.mesh.data_group)
+        n = self.mesh.shape["data"]
+        bucket[:-1 if sharded else None].div_(n)
+        offset = 0
+        for g in grads:
+            g.copy_(bucket[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return bucket[-2], bucket[-1].round().long()
 
     @torch.no_grad()
     def eval_step(self, x, labels):

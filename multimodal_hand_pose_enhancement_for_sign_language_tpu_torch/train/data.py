@@ -150,6 +150,7 @@ def load_data(
     require_image=False,
     embeds_type="normal",
     base_path="./",
+    write_stats=True,
 ):
     """Reference load_data (:129-205) in (N, T, D) layout.
 
@@ -157,7 +158,8 @@ def load_data(
     train_feats/val_feats (None without features; the training rows
     shuffled with the permutation of train_X), plus the standardization
     stats, and writes the stats to
-    ``{model_path}/{exp_name}{pipeline}_preprocess_core.npz``.
+    ``{model_path}/{exp_name}{pipeline}_preprocess_core.npz`` unless
+    ``write_stats`` is False (the ranks but 0 of a multi-process run).
     """
     feat_args = (require_text, require_image, embeds_type, base_path)
     train_X, train_Y, train_feats = fetch_split(data_dir, "train", pipeline, *feat_args)
@@ -176,14 +178,15 @@ def load_data(
         tX, tY = tX.astype(np.float32), tY.astype(np.float32)
     mean_X, std_X, mean_Y, std_Y = std_lib.calc_standard(tX, tY, pipeline)
     del tX, tY
-    mkdir(model_path)
-    std_lib.save_standardization(
-        os.path.join(model_path, f"{exp_name}{pipeline}_preprocess_core.npz"),
-        mean_X,
-        std_X,
-        mean_Y,
-        std_Y,
-    )
+    if write_stats:
+        mkdir(model_path)
+        std_lib.save_standardization(
+            os.path.join(model_path, f"{exp_name}{pipeline}_preprocess_core.npz"),
+            mean_X,
+            std_X,
+            mean_Y,
+            std_Y,
+        )
 
     # standardize in (N, T, D): transpose the (1, D, 1) stats to (1, 1, D);
     # float32 arrays are subtracted and divided in place, the legacy chain's

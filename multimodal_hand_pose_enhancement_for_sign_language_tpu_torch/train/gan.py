@@ -38,6 +38,19 @@ times as far from a float64 step as the CPU's, and a G step takes up to
 4.8 times as long (PERF.md, ``chip_step_precision.py``).  With
 ``loss="RobustLoss"`` the regression loss of every G and val step on a CUDA
 device runs through the hand-written ``ops/robust_loss`` kernel.
+
+With a ``mesh`` (``parallel/mesh.get_mesh``) the steps are the JAX
+trainer's data-parallel ones, written out over ``torch.distributed``: the
+state is broadcast at start; a step takes the global batch (every rank
+holds it) or ``shard_batch``'s rows and computes on this rank's rows, with
+BatchNorm statistics pooled over the data group
+(``parallel/batchnorm``) and dropout masks drawn for the global batch; all
+gradients go into one bucket, all-reduced (mean) over 'data' with the loss,
+so the returned loss is the global mean.  A batch whose rows do not divide
+'data' is replicated: every rank computes all of it, with local statistics.
+``tp=True`` also splits the generator's convolutions over 'model'
+(``tp_param_placement``); ``checkpoint_payload`` gathers them back into the
+reference layout.  The collectives run whatever the mesh's size.
 """
 
 from __future__ import annotations
@@ -62,9 +75,14 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.losses.robust 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import registry
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.layers import (
     set_dropout_generator,
+    set_dropout_rows,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops.robust_loss import (
     robust_lossfun,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
+    batchnorm,
+    mesh as mesh_lib,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train.staging import (
     as_staged,
@@ -146,9 +164,11 @@ class GanTrainer:
     """Builds the models, optimizers and loss on ``device`` and exposes the
     train/val steps.  Weights are PyTorch's default initialisation seeded
     from ``cfg.seed``; dropout masks come from a generator on the device
-    seeded from it too, so nothing draws from the global generator."""
+    seeded from it too, so nothing draws from the global generator.
+    ``mesh``/``tp``: the data- (and tensor-) parallel steps of the module
+    docstring."""
 
-    def __init__(self, cfg: GanConfig, device="cuda"):
+    def __init__(self, cfg: GanConfig, device="cuda", mesh=None, tp: bool = False):
         if cfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: expected one of "
                              f"{sorted(_DTYPES)}")
@@ -169,6 +189,16 @@ class GanTrainer:
         self.dropout_generator.manual_seed(cfg.seed)
         set_dropout_generator(self.generator, self.dropout_generator)
         set_dropout_generator(self.discriminator, self.dropout_generator)
+        self.mesh = mesh
+        self.tp = tp and mesh is not None
+        if mesh is not None:
+            mesh.check_device(self.device)
+            self._rows = mesh_lib.RowShard()
+            for m in (self.generator, self.discriminator):
+                batchnorm.convert(m, self._rows)
+                set_dropout_rows(m, self._rows)
+            if self.tp:
+                mesh_lib.tp_param_placement(self.generator, mesh)
         self._g_params = list(self.generator.parameters())
         self.g_opt = torch.optim.Adam(self._g_params, lr=cfg.learning_rate)
         self.d_opt = torch.optim.Adam(self.discriminator.parameters(),
@@ -181,6 +211,44 @@ class GanTrainer:
         else:
             self.adaptive = None
             self.reg_loss = losses_lib.get_loss(cfg.loss)
+        if mesh is not None:
+            for m in (self.generator, self.discriminator, self.adaptive):
+                if m is not None:
+                    mesh_lib.replicate(m, mesh)
+
+    # ------------------------------------------------------------------
+    # the mesh: this rank's rows, the gradient bucket
+    # ------------------------------------------------------------------
+    def _local(self, *arrays):
+        """This rank's rows of a step's arrays (as given without a mesh),
+        with the modules' row sharding set for the step."""
+        if self.mesh is None:
+            return arrays
+        arrays, sharded = mesh_lib.local_rows(arrays, self.mesh)
+        self._rows.set(self.mesh if sharded else None)
+        return arrays
+
+    def _reduce(self, params, loss):
+        """All-reduce (mean over 'data') the parameters' gradients and the
+        loss as one bucket; returns the global loss.  Without a mesh, the
+        loss as it is."""
+        if self.mesh is None:
+            return loss
+        grads = [p.grad for p in params if p.grad is not None]
+        bucket = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).float()])
+        mesh_lib.all_reduce_mean(bucket, self.mesh)
+        offset = 0
+        for g in grads:
+            g.copy_(bucket[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return bucket[-1]
+
+    def _to_device(self, a):
+        """A host batch for a step: this rank's rows under a mesh when they
+        divide 'data' (the others stay home), else all of it."""
+        if self.mesh is not None and a.shape[0] % self.mesh.shape["data"] == 0:
+            return mesh_lib.shard_batch(a, self.mesh)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ------------------------------------------------------------------
     # losses
@@ -260,11 +328,13 @@ class GanTrainer:
     @_float32_step
     def g_step(self, x, y, feats=None):
         """One generator update; returns the loss (a 0-d device tensor)."""
+        x, y, feats = self._local(x, y, feats)
         g_loss = self._g_loss(x, y, feats)
         self.g_opt.zero_grad(set_to_none=True)
         g_loss.backward(inputs=self._g_params)
+        g_loss = self._reduce(self._g_params, g_loss.detach())
         self.g_opt.step()
-        return g_loss.detach()
+        return g_loss
 
     @_float32_step
     def d_step(self, x, y, feats=None):
@@ -272,6 +342,7 @@ class GanTrainer:
         under no_grad; D takes two train-mode forwards, fake then real, so
         its running statistics update twice in that order (with
         ``fused_d``, one forward over both and the same statistics)."""
+        x, y, feats = self._local(x, y, feats)
         self.generator.eval()
         self.discriminator.train()
         with torch.no_grad(), self._at_compute_dtype(self.generator) as (gen, _, _):
@@ -288,8 +359,9 @@ class GanTrainer:
         d_loss = mse(self._uncast(fake_score), t_fake) + mse(self._uncast(real_score), t_real)
         self.d_opt.zero_grad(set_to_none=True)
         d_loss.backward()
+        d_loss = self._reduce(list(self.discriminator.parameters()), d_loss.detach())
         self.d_opt.step()
-        return d_loss.detach()
+        return d_loss
 
     def _d_scores_fused(self, params, bufs, fake_motion, real_motion):
         """D's train-mode forward of the fake and the real pass at once.
@@ -312,9 +384,10 @@ class GanTrainer:
                 s0 = (bufs[f"convs.{i}.running_mean"], bufs[f"convs.{i}.running_var"])
                 upd = [torch.cat((s, s)) for s in s0]
                 g = h.view(2, B, C, T).transpose(0, 1).reshape(B, 2 * C, T)
-                g = F.batch_norm(g, upd[0], upd[1], params[f"convs.{i}.weight"].repeat(2),
-                                 params[f"convs.{i}.bias"].repeat(2), True, D_MOMENTUM,
-                                 layer.eps)
+                g = batchnorm.batch_norm(
+                    g, upd[0], upd[1], params[f"convs.{i}.weight"].repeat(2),
+                    params[f"convs.{i}.bias"].repeat(2), True, D_MOMENTUM, layer.eps,
+                    None if self.mesh is None else self._rows.group)
                 h = g.view(B, 2, C, T).transpose(0, 1).reshape(2 * B, C, T)
                 with torch.no_grad():
                     for s, u in zip(s0, upd):
@@ -327,10 +400,11 @@ class GanTrainer:
 
     @_float32_step
     def val_step(self, x, y, feats=None):
+        x, y, feats = self._local(x, y, feats)
         self.generator.eval()
         with torch.no_grad(), self._at_compute_dtype(self.generator) as (gen, _, _):
             y_hat = self._uncast(gen(self._cast(x.transpose(1, 2)), self._cast(feats)))
-            return self._reg(y_hat, y)
+            return self._reduce((), self._reg(y_hat, y))
 
     @_float32_step
     def grad_flow(self, x, y, feats=None) -> dict:
@@ -338,7 +412,10 @@ class GanTrainer:
         on one batch, keyed by the generator's parameter names, without a
         step: the modules' weights, running statistics and dropout stream
         are as they were (dropout draws from a generator seeded 0, as the
-        JAX package's grad_flow draws from PRNGKey(0))."""
+        JAX package's grad_flow draws from PRNGKey(0)).  Under a mesh every
+        rank takes the whole batch, as one device would."""
+        if self.mesh is not None:
+            self._rows.set(None)
         before = {n: b.clone() for n, b in self.generator.named_buffers()}
         set_dropout_generator(self.generator,
                               torch.Generator(device=self.device).manual_seed(0))
@@ -370,16 +447,16 @@ class GanTrainer:
         losses = []
         for bi in range(X.shape[0] // batch_size):
             sl = slice(bi * batch_size, (bi + 1) * batch_size)
-            x, y, f = (None if a is None else
-                       torch.from_numpy(np.ascontiguousarray(a[sl])).to(self.device)
-                       for a in (X, Y, feats))
+            x, y, f = (None if a is None else self._to_device(a[sl]) for a in (X, Y, feats))
             losses.append(step(x, y, f))
         return float(torch.stack(losses).mean()) if losses else 0.0
 
     def stage(self, *arrays):
         """Move full (N, ...) arrays -- X, Y and the features, if any -- to
         the device once, for resident epochs; returns one Staged record per
-        array (None stays None)."""
+        array (None stays None).  Under a mesh every rank stages all rows:
+        a shuffled batch may draw any row, and each rank gathers only its
+        own rows of each batch."""
         return tuple(as_staged(a, self.device) for a in arrays)
 
     def run_epoch_resident(self, X_dev, Y_dev, perm, kind: str,
@@ -397,9 +474,14 @@ class GanTrainer:
                                dtype=torch.int64).to(self.device)
         losses = []
         for idx in perm.reshape(nb, batch_size):
+            sharded = self.mesh is not None and batch_size % self.mesh.shape["data"] == 0
+            if sharded:
+                idx = mesh_lib.shard_batch(idx, self.mesh).rows
             x, y, f = (None if a is None else
                        unflatten_batch(a.dev.index_select(0, idx), a.trail)
                        for a in staged)
+            if sharded:
+                x, y, f = (None if a is None else mesh_lib.Sharded(a) for a in (x, y, f))
             losses.append(step(x, y, f))
         return float(torch.stack(losses).mean())
 
@@ -409,23 +491,52 @@ class GanTrainer:
     def checkpoint_payload(self, epoch: int) -> dict:
         """Everything a resume needs.  The first three keys are the
         reference's generator checkpoint ({'epoch', 'state_dict',
-        'g_optimizer'}, train_gan.py:353-370)."""
+        'g_optimizer'}, train_gan.py:353-370).  Under ``tp`` the split
+        weights and their Adam moments are gathered into the reference
+        layout (a collective over 'model': every rank calls it)."""
         return {
             "epoch": int(epoch),
-            "state_dict": self.generator.state_dict(),
-            "g_optimizer": self.g_opt.state_dict(),
+            "state_dict": (mesh_lib.tp_full_state_dict(self.generator, self.mesh)
+                           if self.tp else self.generator.state_dict()),
+            "g_optimizer": self._g_opt_state(mesh_lib.gather_split),
             "discriminator": self.discriminator.state_dict(),
             "d_optimizer": self.d_opt.state_dict(),
             "robust": self.adaptive.state_dict() if self.adaptive is not None else {},
             "dropout_generator": self.dropout_generator.get_state(),
         }
 
+    def _split_dims(self):
+        """{index in the G optimizer: split dim} of the tp-split weights."""
+        split = {id(m.weight): m.tp_dim for m in self.generator.modules()
+                 if hasattr(m, "tp_dim")}
+        return {i: split[id(p)] for i, p in enumerate(self._g_params) if id(p) in split}
+
+    def _g_opt_state(self, convert_one, opt_state=None):
+        """The G optimizer's state dict (``opt_state`` or its own) with the
+        moments of the split weights passed through ``convert_one(t, dim,
+        mesh)``."""
+        sd = self.g_opt.state_dict() if opt_state is None else opt_state
+        if not self.tp:
+            return sd
+        sd = copy.copy(sd)
+        sd["state"] = {i: dict(st) for i, st in sd["state"].items()}
+        for i, dim in self._split_dims().items():
+            for k, v in sd["state"].get(i, {}).items():
+                if torch.is_tensor(v) and v.dim() > dim:
+                    sd["state"][i][k] = convert_one(v, dim, self.mesh)
+        return sd
+
     def load_checkpoint_payload(self, payload: dict) -> None:
-        self.generator.load_state_dict(payload["state_dict"], strict=True)
+        state = payload["state_dict"]
+        if self.tp:
+            state = mesh_lib.tp_local_state_dict(state, self.generator, self.mesh)
+        self.generator.load_state_dict(state, strict=True)
         self.discriminator.load_state_dict(payload["discriminator"], strict=True)
         # an optimizer adopts the tensors it is given: copy, so a payload
         # handed over in memory does not tie two trainers' moments together
-        self.g_opt.load_state_dict(copy.deepcopy(payload["g_optimizer"]))
+        self.g_opt.load_state_dict(self._g_opt_state(
+            lambda t, dim, mesh: mesh_lib.local_split(t, dim, mesh).clone(),
+            copy.deepcopy(payload["g_optimizer"])))
         self.d_opt.load_state_dict(copy.deepcopy(payload["d_optimizer"]))
         if self.adaptive is not None:
             self.adaptive.load_state_dict(payload["robust"], strict=True)

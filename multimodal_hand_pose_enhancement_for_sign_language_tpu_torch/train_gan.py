@@ -15,6 +15,13 @@ keeps the dataset on the device and sends only the permutation per epoch.
 and losses float32); ``--log_grad_flow N`` logs the G loss's per-parameter
 mean and max |gradient| every N epochs, on the first training batch.
 
+Launched by ``python -m torch.distributed.run --nproc_per_node=N``, it
+starts the process group (NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``), builds a mesh over every rank, however many, and trains
+data-parallel (``GanTrainer(mesh=...)``): every rank loads the data and
+takes the same schedule; rank 0 alone prints and writes the statistics,
+metrics and checkpoints.  Without torchrun's environment it is one process.
+
 ``--prng_impl``, the JAX CLI's choice of dropout PRNG, has no counterpart
 (dropout masks come from a ``torch.Generator``): it is accepted and raises
 ``NotImplementedError``; no flag is ignored.
@@ -29,6 +36,9 @@ import shutil
 import numpy as np
 import torch
 
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
+    multihost,
+)
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
     checkpoint as ckpt_lib,
     data as data_lib,
@@ -45,6 +55,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constant
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.metrics import (
     MetricsSink,
+    NullSink,
 )
 
 # flag -> (is it set?, why it is refused)
@@ -68,10 +79,19 @@ def main(args, epoch_hook=None):
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
     if args.require_text and args.require_image:
         raise ValueError("--require_text and --require_image exclude each other")
+    mesh, device = multihost.start(args.device)
+    with multihost.main_output_only(mesh):
+        return _train(args, epoch_hook, mesh, device)
+
+
+def _train(args, epoch_hook, mesh, device):
     _, feature_out_dim = FEATURE_MAP[args.pipeline]
     rng = np.random.RandomState(23456)
+    writes = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        print(f"===> data-parallel over {mesh}", flush=True)
 
-    sink = MetricsSink(
+    sink = NullSink() if not writes else MetricsSink(
         args.exp_name,
         out_dir=args.model_path,
         use_wandb=args.use_wandb,
@@ -90,7 +110,7 @@ def main(args, epoch_hook=None):
     data = data_lib.load_data(
         args.data_dir, args.pipeline, args.model_path, args.exp_name, rng,
         require_text=args.require_text, require_image=args.require_image,
-        embeds_type=args.embeds_type, base_path=args.base_path,
+        embeds_type=args.embeds_type, base_path=args.base_path, write_stats=writes,
     )
     train_X, train_Y = data["train_X"], data["train_Y"]
     val_X, val_Y = data["val_X"], data["val_Y"]
@@ -117,7 +137,10 @@ def main(args, epoch_hook=None):
         window_t=train_X.shape[1],
         compute_dtype="bfloat16" if args.bf16 else "float32",
     )
-    trainer = GanTrainer(cfg, device=args.device)
+    if mesh is None:
+        trainer = GanTrainer(cfg, device=device)
+    else:
+        trainer = GanTrainer(cfg, device=device, mesh=mesh)
     if args.epoch_scan:
         # device-resident path: stage the dataset on the device once; only
         # the reference-exact shuffle permutation crosses per epoch
@@ -196,18 +219,17 @@ def main(args, epoch_hook=None):
                     k: v for k, v in vars(args).items()
                     if isinstance(v, (bool, int, float, str, type(None)))
                 }
-                ckpt_lib.save_checkpoint(fname, payload)
                 last_checkpoint = fname
-                ckpt_lib.save_checkpoint(
-                    os.path.join(
-                        args.model_path, f"discriminator_{args.exp_name}.pth"
-                    ),
-                    {
-                        "epoch": epoch,
-                        "state_dict": payload["discriminator"],
-                        "d_optimizer": payload["d_optimizer"],
-                    },
-                )
+                if writes:
+                    ckpt_lib.save_checkpoint(fname, payload)
+                    ckpt_lib.save_checkpoint(
+                        os.path.join(args.model_path, f"discriminator_{args.exp_name}.pth"),
+                        {
+                            "epoch": epoch,
+                            "state_dict": payload["discriminator"],
+                            "d_optimizer": payload["d_optimizer"],
+                        },
+                    )
             if epoch_hook is not None:
                 epoch_hook(epoch, "g", trainer,
                            {"loss_train_gen": g_loss, "loss_val_gen": val_loss})
@@ -234,7 +256,7 @@ def main(args, epoch_hook=None):
             if train_feats is not None:
                 train_feats = train_feats[I]
 
-    if last_checkpoint:
+    if last_checkpoint and writes:
         shutil.copyfile(
             last_checkpoint,
             os.path.join(args.model_path, f"lastCheckpoint_{args.exp_name}.pth"),
@@ -277,5 +299,7 @@ def build_parser():
 
 if __name__ == "__main__":
     args = build_parser().parse_args()
-    print(args, flush=True)
+    if multihost.is_main():
+        print(args, flush=True)
     main(args)
+    multihost.finish()

@@ -46,3 +46,16 @@ class MetricsSink:
         self._fh.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullSink:
+    """A sink that records nothing (the ranks but 0 of a multi-process run)."""
+
+    def log(self, metrics: dict):
+        pass
+
+    def save_file(self, path: str):
+        pass
+
+    def close(self):
+        pass

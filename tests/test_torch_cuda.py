@@ -20,7 +20,11 @@ generators' raw-output rule, or for ResNet-50 where cuDNN breaks it, within
 twice the CPU's float32 error against float64.  The lifting alternatives:
 ``filter_xyz`` and the single-clip v2 API launch the filter kernel; the
 closed form ``filter_xyz_matpow`` at 'float32' within 3e-4 of the kernel
-(the JAX package's matpow bound, test_pallas_kernels.py:62-82).
+(the JAX package's matpow bound, test_pallas_kernels.py:62-82).  The mesh
+paths on a one-rank NCCL group: a DP G step equals the step without a mesh
+at the step tolerances' loss bound (1e-5 relative) and launches the robust
+loss; sharded lifting launches the filter kernel and equals the unsharded
+lifting within 1e-6.
 """
 
 import numpy as np
@@ -569,3 +573,53 @@ def test_lifting_entry_points_run_the_kernel_whatever_the_environment(cuda, monk
     engine.lift_clips(clips, n_cycles=20, device=cuda)
     assert fs.filter_sgd.launches - before == 3
 
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL group on cuda:0 and a mesh over it."""
+    import torch.distributed as dist
+
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
+        mesh as mesh_lib,
+    )
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield mesh_lib.get_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dp_g_step_on_one_nccl_rank(nccl_mesh):
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import gan
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(8, 64, 12).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randn(8, 64, 24).astype(np.float32)).cuda()
+    cfg = gan.GanConfig(feature_in_dim=12, feature_out_dim=24, default_size=32,
+                        window_t=64, loss="RobustLoss", dropout_rate=0.0)
+    want = float(gan.GanTrainer(cfg, device="cuda").g_step(x, y))
+    before = rl.robust_lossfun.launches
+    got = float(gan.GanTrainer(cfg, device="cuda", mesh=nccl_mesh).g_step(x, y))
+    assert rl.robust_lossfun.launches == before + 1
+    assert abs(got - want) <= 1e-5 * abs(want)
+
+
+@pytest.mark.cuda
+def test_sharded_lifting_launches_the_kernel(nccl_mesh):
+    rng = np.random.RandomState(1)
+    clips = []
+    for T in (70, 130, 300):
+        kp = rng.uniform(100, 500, size=(T, 150)).astype(np.float32)
+        kp[:, 2::3] = rng.uniform(0.5, 1.0, size=(T, 50))
+        clips.append(kp)
+    want = engine.lift_clips(clips, n_cycles=60, device="cuda")
+    before = fs.filter_sgd.launches
+    got = engine.lift_clips(clips, n_cycles=60, device="cuda", mesh=nccl_mesh)
+    assert fs.filter_sgd.launches - before == len(engine._plan(clips))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)

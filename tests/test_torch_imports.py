@@ -105,7 +105,8 @@ def test_port_imports_and_loads_a_jax_checkpoint_without_jax(tmp_path):
                  "process_dataset", "article_replay", "data.tokenizers",
                  "models.hf_snapshot", "models.text_encoders", "models.clip_vision",
                  "models.resnet", "demo", "viz.track_grads",
-                 "losses.robust.fit_partition_spline"):
+                 "losses.robust.fit_partition_spline", "parallel.mesh", "parallel.batchnorm",
+                 "parallel.multihost", "parallel.sequence"):
         assert f"{PORT}.{name}" in info["modules"], name
     want = convert.generator_state_dict(variables)
     got = np.load(out)

@@ -63,15 +63,18 @@ to the bit with a lower peak memory.
 
 Replay: the port's ``article_replay.main`` at ``--scale small`` (256 / 64 /
 64 clips) and full width, with the signal fixtures, fingers 1-3, the
-reference-config classifier for one epoch and the anomaly controls: the
+reference-config classifier (bidirectional, then unidirectional) for one
+epoch each and the anomaly controls (``--seqs_to_viz 0`` where matplotlib or
+PIL is missing; with both, each test split's two GIFs): the
 fixture made on the card (held against the same fixture made on the CPU),
 the raw smoke through ``process_dataset --lift`` at 60 cycles, both
 canonical configs trained and served, the classifiers, the finger trend.
 Checked: both kernels launched in the replay, the report complete (finite
 L1 on every split, val steps run, accuracies in [0, 1]), ``filter_sgd`` on
 every raw-smoke batch against its plain version, ``robust_loss`` held at
-the replay's residual shapes; a ``{"replay": ...}`` line carries the stage
-times and the table-shaped numbers.
+the replay's residual shapes, a ``--resume`` that runs no stage again; a
+``{"replay": ...}`` line carries the stage times and the table-shaped
+numbers.
 
 Featurizers: seeded random weights at the widths the JAX routes default to
 (MiniLM-L6 384x6, bert-base 768x12 at 512 tokens, CLIP ViT-B/32's text
@@ -111,11 +114,26 @@ one (loss 1e-5 relative, statistics 5e-6, gradients 2^-6); G, D and val rates at
 fused, in turns; float64 clips through ``load_data`` against the JAX legacy
 route's arrays (``tests/data/load_data_float64_ref.npz``).
 
+Viz (on the training checkpoint): whether matplotlib and PIL import here,
+and the case that allows: with both, ``inference --seqs_to_viz 2`` and
+``viz_gt`` in both modes render (GIF names, frame counts, durations;
+``viz_gt``'s xyz card vs CPU within 1e-3 MPJPE); without either,
+``inference --seqs_to_viz 2`` and ``viz_gt --file_path`` must exit nonzero
+before any work naming the package, and ``--seqs_to_viz 0`` must serve.
+
+Utils (after training): ``nan_guard.tree_check_finite`` on a trainer's CUDA
+state after one G step (nothing; one NaN planted in a gradient, by name),
+``profiling.trace`` around one G step (``robust_loss_kernel`` and an
+``annotate`` region in its Chrome trace), ``ops/build.library``'s name
+under another toolchain text.
+
 Mesh (after training): the multi-device paths (``parallel/``) in-process
 on a one-rank NCCL group (a FileStore rendezvous), each against the same
 path without a mesh on the card: the DP and TP G and D steps of v1 arm2wh at
 B=128 at the step tolerances (the mask: entries whose gradient lies within
-4x the two evaluations' disagreement) and their val steps, the classifier's
+4x the two evaluations' disagreement) and their val steps, the DP G step
+also as the plain card step is held (``hold_step``: against the CPU's
+float32 step and float64 on its own and the CPU's branches), the classifier's
 DP step (1024x10 bidirectional, B=4), sharded ``run_inference`` at B=2048
 (2^-15 of the largest output), the serving clips' sharded ``lift_clips``
 (1e-6; ``filter_sgd`` launches counted), ``filter_xyz_time_sharded`` on an
@@ -149,6 +167,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from io import BytesIO
 
 import numpy as np
 import torch
@@ -164,6 +183,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import (
     inference,
     process_dataset,
     train_gan,
+    viz_gt,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
     io,
@@ -207,6 +227,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
     data as data_lib,
     gan,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils import (
+    nan_guard,
+    profiling,
+)
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constants import (
     ARMS,
     DATA_PATHS,
@@ -214,6 +238,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constant
     NECK,
     WINDOW_T,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.viz import viz_3d
 
 SEED = 0
 N_CYCLES = 900
@@ -1087,15 +1112,17 @@ def epoch_watch(cfg):
     return hook, seen
 
 
-def train_phase(r6d):
+def train_phase(xyz, r6d):
     """GAN training of v1 on the card through the port's CLI entry point,
-    then inference from its checkpoint; returns the robust-loss launches of
-    that run."""
+    then inference from its checkpoint and the viz phase on it; returns the
+    robust-loss launches of that run, the viz phase's row and the train
+    split's windows (X, Y)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         data_dir = os.path.join(tmp, "data")
         os.makedirs(data_dir)
         io.save_binary(list(r6d), os.path.join(data_dir, "r6d_train"))
         io.save_binary(list(r6d[-N_VAL_CLIPS:]), os.path.join(data_dir, "r6d_val"))
+        io.save_binary(xyz, os.path.join(data_dir, "xyz_train"))  # save_results' root
         args = _train_args(tmp, data_dir)
         hook, seen = epoch_watch(gan.GanConfig(loss="RobustLoss"))
         rl.robust_lossfun.launches = 0  # counts of the training path start here
@@ -1131,6 +1158,7 @@ def train_phase(r6d):
             raise AssertionError(f"bad output from the trained checkpoint {out.shape}")
         resumed = gan.GanTrainer(gan.GanConfig(loss="RobustLoss"), device="cuda")
         resumed.load_checkpoint_payload(ckpt_lib.load_checkpoint(ckpt, "cuda"))
+        viz = viz_phase(tmp, data_dir, ckpt)
 
     ad = AdaptiveLossFunction(252 * 192).to("cuda")
     log(f"default latents on the card: alpha == 2.0 exactly "
@@ -1150,7 +1178,196 @@ def train_phase(r6d):
     log_trace(f"one G epoch, {len(X) // TRAIN_BATCH} steps of B={TRAIN_BATCH} (resident)",
               *profiled(lambda: trainer.run_epoch_resident(
                   *staged, np.arange(len(X)), "g", TRAIN_BATCH)), "robust_loss")
-    return launches
+    return launches, viz, (X, Y)
+
+
+# viz phase: GIFs need matplotlib and PIL, imported inside the functions
+# that render; where either is missing the CLIs must refuse before any work
+VIZ_SEQS = 2
+
+
+
+def _port_cli(module, argv, cwd):
+    """``python -m <port>.<module> argv`` in ``cwd``: (exit code, stdout,
+    stderr)."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", f"{train_gan.__package__}.{module}", *argv],
+                          cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def _gif_info(path):
+    """(frame count, duration as PIL reads it back, loop)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return im.n_frames, im.info.get("duration"), im.info.get("loop")
+
+
+def _gif_duration(n_frames, frame_rate=2):
+    """The duration PIL reads back from a GIF saved with the reference's
+    ``len(frames) / frame_rate`` (its unit is ms, stored in 1/100 s)."""
+    from PIL import Image
+
+    buf = BytesIO()
+    frames = [Image.new("P", (2, 2), i) for i in range(2)]
+    frames[0].save(buf, format="GIF", append_images=frames[1:], save_all=True,
+                   duration=n_frames / frame_rate, loop=0)
+    buf.seek(0)
+    with Image.open(buf) as im:
+        return im.info.get("duration")
+
+
+def _check_gifs(paths, lengths, label):
+    names = [os.path.basename(p) for p in paths]
+    info = [_gif_info(p) for p in paths]
+    want = [(T, _gif_duration(T), 0) for T in lengths]
+    if names != [f"{i}.gif" for i in range(len(lengths))] or info != want:
+        raise AssertionError(f"{label}: GIFs {names} {info}, expected {want}")
+    return {"gifs": names, "frames": [i[0] for i in info], "duration": [i[1] for i in info]}
+
+
+def viz_phase(tmp, data_dir, ckpt):
+    """The GIF surfaces on the card, on the train phase's checkpoint
+    (``ckpt``, its data in ``data_dir``).  Where matplotlib and PIL import:
+    ``inference --seqs_to_viz 2`` and ``viz_gt`` in both modes, the GIFs'
+    names, frame counts (T of each clip) and durations checked, and
+    ``viz_gt``'s xyz from the card's ``save_results`` held against the CPU's
+    at the serving bound (MPJPE 1e-3).  Where either is missing: the
+    inference CLI with ``--seqs_to_viz 2`` and ``viz_gt --file_path`` must
+    exit nonzero before any work, naming the package, and the inference CLI
+    with ``--seqs_to_viz 0`` must still serve.  Returns the phase's row."""
+    t0 = time.perf_counter()
+    missing = viz_3d.missing()
+    have = {name: name not in missing for name in viz_3d.PACKAGES}
+    case = "refusal (" + " and ".join(missing) + " missing)" if missing else "render"
+    log(f"viz phase: imports {json.dumps(have)} on this machine; case: {case}")
+    row = {"packages": have, "case": case}
+    argv = ["--checkpoint", ckpt, "--data_dir", data_dir, "--infer_set", "val",
+            "--exp_name", "smoke", "--batch_size", str(TRAIN_BATCH), "--device", "cuda"]
+    xyz_file = os.path.join(tmp, "viz_xyz.pkl")
+    io.save_binary([np.random.RandomState(SEED + 11).uniform(-1, 1, (4, 150)).astype(np.float32)
+                    for _ in range(VIZ_SEQS)], xyz_file)
+    cwd = os.getcwd()
+    if missing:
+        for module, cli_argv, wrote in (
+                ("inference", argv + ["--seqs_to_viz", str(VIZ_SEQS), "--base_path",
+                                      os.path.join(tmp, "viz_refused")],
+                 os.path.join(tmp, "viz_refused")),
+                ("viz_gt", ["--file_path", xyz_file, "--seqs_to_viz", str(VIZ_SEQS),
+                            "--results_dir", os.path.join(tmp, "viz_gt_refused")],
+                 os.path.join(tmp, "viz_gt_refused"))):
+            rc, out, err = _port_cli(module, cli_argv, tmp)
+            said = err.strip().splitlines()[-1] if err.strip() else ""
+            log(f"viz phase: {module} --seqs_to_viz {VIZ_SEQS}: exit {rc}; {said}")
+            if rc == 0 or not all(m in said for m in missing) or "--seqs_to_viz 0" not in said:
+                raise AssertionError(f"{module} did not refuse as it should: exit {rc}, {said}")
+            if "test_X.shape" in out or os.path.exists(wrote):
+                raise AssertionError(f"{module} did work before refusing: {out[-1000:]}")
+            row[f"{module}_refusal"] = {"exit": rc, "message": said}
+        os.chdir(tmp)  # save_results writes root.pkl / bone_len.pkl to the cwd
+        try:
+            err = inference.main(inference.build_parser().parse_args(
+                argv + ["--seqs_to_viz", "0", "--base_path", os.path.join(tmp, "viz_zero")]))
+        finally:
+            os.chdir(cwd)
+        xyz = np.asarray(io.load_binary(os.path.join(tmp, "viz_zero", "results_smoke",
+                                                     "xyz_val.pkl")))
+        log(f"viz phase: inference --seqs_to_viz 0 served xyz {xyz.shape}, L1 {err:.6f}")
+        if not (np.isfinite(err) and np.isfinite(xyz).all() and xyz.shape[1:] == (WINDOW_T, 150)):
+            raise AssertionError("inference --seqs_to_viz 0 did not serve")
+        row["served_with_seqs_to_viz_0"] = {"l1": err, "xyz_shape": list(xyz.shape)}
+    else:
+        os.chdir(tmp)  # the GIFs, root.pkl and bone_len.pkl go to the cwd
+        try:
+            err, gifs = inference.run(inference.build_parser().parse_args(
+                argv + ["--seqs_to_viz", str(VIZ_SEQS), "--base_path", os.path.join(tmp, "viz")]))
+            xyz = io.load_binary(os.path.join(tmp, "viz", "results_smoke", "xyz_val.pkl"))
+            row["inference"] = _check_gifs(gifs, [len(c) for c in xyz[:VIZ_SEQS]],
+                                           "inference --seqs_to_viz")
+            file_gifs = viz_gt.main(viz_gt.build_parser().parse_args(
+                ["--file_path", xyz_file, "--seqs_to_viz", str(VIZ_SEQS),
+                 "--results_dir", os.path.join(tmp, "viz_gt_file")]))
+            row["viz_gt_file"] = _check_gifs(file_gifs, [4] * VIZ_SEQS, "viz_gt --file_path")
+            gt = {}
+            for dev in ("cuda", "cpu"):
+                gifs = viz_gt.main(viz_gt.build_parser().parse_args(
+                    ["--data_dir", data_dir, "--infer_set", "val", "--seqs_to_viz", str(VIZ_SEQS),
+                     "--exp_name", f"gt_{dev}", "--base_path", tmp, "--device", dev]))
+                gt[dev] = io.load_binary(os.path.join(tmp, f"results_gt_{dev}_val", "xyz_val.pkl"))
+                row[f"viz_gt_{dev}"] = _check_gifs(gifs, [len(c) for c in gt[dev]], "viz_gt")
+        finally:
+            os.chdir(cwd)
+        m = mpjpe(gt["cuda"], gt["cpu"])
+        row["viz_gt_xyz_mpjpe_card_vs_cpu"] = m
+        if not m <= MPJPE_BUDGET:
+            raise AssertionError(f"viz_gt's xyz on the card is {m} from the CPU's")
+    row["seconds"] = time.perf_counter() - t0
+    log("viz phase " + json.dumps(row))
+    return row
+
+
+# utils phase: nan_guard, profiling and the build cache's key on the card
+def utils_phase(X, Y):
+    """``nan_guard.tree_check_finite`` on a trainer's CUDA state after one G
+    step (nothing reported; one NaN planted in a gradient, reported by
+    name), ``profiling.trace`` around one G step (its Chrome trace must hold
+    ``robust_loss_kernel`` and the ``annotate`` region; a session that loses
+    the CUDA record gets a second, and two in a row fail), and
+    ``ops/build.library``'s name under a changed toolchain text.  Returns
+    the phase's row."""
+    t0 = time.perf_counter()
+    cfg = gan.GanConfig(loss="RobustLoss", disc_label_smooth=True)
+    tr = gan.GanTrainer(cfg, device="cuda")
+    xt, yt = (torch.from_numpy(a[:TRAIN_BATCH]).to("cuda") for a in (X, Y))
+    tr.g_step(xt, yt)
+    grads = {k: p.grad for k, p in tr.generator.named_parameters() if p.grad is not None}
+    state = {"generator": tr.generator.state_dict(), "grads": grads,
+             "g_opt": tr.g_opt.state_dict()}
+    clean = nan_guard.tree_check_finite(state)
+    name = sorted(grads)[0]
+    grads[name].view(-1)[0] = float("nan")
+    planted = nan_guard.tree_check_finite(state)
+    row = {"after_g_step": clean, "planted": planted}
+    if clean or planted != {f"grads/{name}": 1}:
+        raise AssertionError(f"tree_check_finite on the card: {row}")
+
+    region = "chip_smoke_g_step"
+    for sessions in (1, 2):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as log_dir:
+            with profiling.trace(log_dir):
+                with profiling.annotate(region):
+                    tr.g_step(xt, yt)
+            (trace_file,) = os.listdir(log_dir)
+            with open(os.path.join(log_dir, trace_file)) as f:
+                events = json.load(f)["traceEvents"]
+        kernel = any(e.get("cat") == "kernel" and "robust_loss_kernel" in e.get("name", "")
+                     for e in events)
+        annotated = any(e.get("name") == region for e in events)
+        if not annotated:
+            raise AssertionError(f"profiling.trace holds no {region} region")
+        if kernel:
+            break
+    else:
+        raise AssertionError("two profiling.trace sessions in a row lost robust_loss_kernel")
+    row["trace"] = {"events": len(events), "robust_loss_kernel": kernel, "annotate": annotated,
+                    "sessions": sessions}
+
+    lib = build.library("robust_loss")
+    toolchain = build.platform.toolchain_fingerprint
+    build.platform.toolchain_fingerprint = lambda nvcc, host: toolchain(nvcc, host) + "!"
+    try:
+        other = build.library("robust_loss")
+    finally:
+        build.platform.toolchain_fingerprint = toolchain
+    row["library"] = {"built": lib.name, "exists": lib.exists(),
+                      "under_another_toolchain": other.name,
+                      "toolchain": toolchain(build._tool("nvcc"), build._tool("g++")).splitlines()}
+    if other == lib or not lib.exists():
+        raise AssertionError(f"the build cache's key ignores the toolchain: {row['library']}")
+    row["seconds"] = time.perf_counter() - t0
+    log("utils phase " + json.dumps(row))
+    return row
 
 # conditioned phase: each generator with the conditioning it has
 COND_FORWARD = (("v1", "text"), ("v2", "text"), ("v4", "text"),
@@ -1268,7 +1485,7 @@ def cond_train(model, cond, tmp, data_dir, data):
         "--checkpoint", os.path.join(args.model_path, f"lastCheckpoint_{exp}.pth"),
         "--base_path", tmp, "--data_dir", data_dir, "--infer_set", "val",
         "--exp_name", exp, "--model", model, f"--require_{cond}",
-        "--batch_size", str(TRAIN_BATCH), "--device", "cuda",
+        "--batch_size", str(TRAIN_BATCH), "--device", "cuda", "--seqs_to_viz", "0",
     ])
     cwd = os.getcwd()
     os.chdir(tmp)  # save_results writes root.pkl / bone_len.pkl to the cwd
@@ -1667,7 +1884,7 @@ REPLAY_ARGS = ["--scale", "small", "--batch_size", "128", "--classifier_batch", 
                "--epochs", "4", "--finger_epochs", "4", "--classifier_epochs", "10",
                "--signal_fixture", "--finger_signal", "--fingers", "1,2,3",
                "--reference_classifier", "--reference_classifier_epochs", "1",
-               "--anomaly_controls", "--device", "cuda"]
+               "--refcfg_nonbidir_epochs", "1", "--anomaly_controls", "--device", "cuda"]
 REPLAY_RAW_CYCLES = 60  # the replay's raw smoke (article_replay.stage_raw_smoke)
 REPLAY_RAW_PARTITIONS = 2
 ARTICLE_BATCH = 256  # the replay's default --batch_size, the article's
@@ -1727,9 +1944,10 @@ def hold_fixture(card_dir, tmp, fixture):
     return worst, where
 
 
-def check_replay_report(report):
+def check_replay_report(report, seqs_to_viz):
     """Complete, with finite L1 on every split of both configurations and of
-    each K, and accuracies in [0, 1]."""
+    each K, accuracies in [0, 1] (the unidirectional reference config's too,
+    with its note), and ``seqs_to_viz`` GIFs of each test split or none."""
     bad = []
     if not (report.get("completed") and report.get("core_completed")):
         bad.append("not completed")
@@ -1741,13 +1959,24 @@ def check_replay_report(report):
         l1 = report["finger_trend"][str(k)]["inference"]["L1"]
         if sorted(l1) != ["test", "val"] or not all(map(np.isfinite, l1.values())):
             bad.append(f"K={k} L1 {l1}")
+    for name, entry in (*report["configs"].items(), *report["finger_trend"].items()):
+        gifs = entry["inference"]["gifs"]
+        want = {"test": VIZ_SEQS} if seqs_to_viz else {}
+        if {k: len(v) for k, v in gifs.items()} != want or not all(
+                os.path.exists(p) for v in gifs.values() for p in v):
+            bad.append(f"{name} GIFs {gifs}")
     cls = report["classifier"]
     accs = {key: cls[key]["best_val_acc"] for key in (
-        "ground_truth_r6d", "enhanced_r6d", "enhanced_r6d_reference_config", "text_mlp")}
+        "ground_truth_r6d", "enhanced_r6d", "enhanced_r6d_reference_config",
+        "enhanced_r6d_reference_config_nonbidir", "text_mlp")}
     accs.update({f"control {key}": v["best_val_acc"]
                  for key, v in cls["anomaly_controls"].items() if key != "explanation"})
-    if len(accs) != 8 or not all(0.0 <= a <= 1.0 for a in accs.values()):
+    if len(accs) != 9 or not all(0.0 <= a <= 1.0 for a in accs.values()):
         bad.append(f"accuracies {accs}")
+    uni = cls["enhanced_r6d_reference_config_nonbidir"]
+    if (uni["hidden"], uni["layers"], uni["bidir"]) != (1024, 10, False) \
+            or "unidirectional" not in cls.get("reference_config_note", ""):
+        bad.append(f"unidirectional reference config {uni}")
     # the val steps ran: a val epoch of no batch reads 0
     best = [e["train"]["best_val"] for e in (*report["configs"].values(),
                                              *report["finger_trend"].values())]
@@ -1778,10 +2007,15 @@ def replay_phase(fp32, robust_rows):
         shapes.add(tuple(x.shape))
         return launch(x, alpha, scale)
 
+    missing = viz_3d.missing()
+    viz_args = ["--seqs_to_viz", "0"] if missing else []
+    log(f"replay: GIF packages missing here: {json.dumps(missing)}: "
+        + ("the replay renders its GIFs" if not viz_args else
+           "--seqs_to_viz 0, the replay renders no GIF"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_replay_") as tmp:
         work, out = os.path.join(tmp, "work"), os.path.join(tmp, "replay.json")
-        args = article_replay.build_parser().parse_args(
-            REPLAY_ARGS + ["--work_dir", work, "--out", out])
+        argv = REPLAY_ARGS + viz_args + ["--work_dir", work, "--out", out]
+        args = article_replay.build_parser().parse_args(argv)
         cwd = os.getcwd()
         os.chdir(tmp)  # the CLIs write root.pkl, bone_len.pkl and GT_predY.csv here
         rl.robust_loss_and_dx = recording
@@ -1800,7 +2034,33 @@ def replay_phase(fp32, robust_rows):
         log(f"replay: {wall:.1f} s, launches {launches}, robust_loss shapes {sorted(shapes)}")
         if not all(launches.values()):
             raise AssertionError(f"a kernel of the replay path never launched: {launches}")
-        accs = check_replay_report(report)
+        accs = check_replay_report(report, args.seqs_to_viz)
+
+        # a --resume runs no stage again, the unidirectional reference config
+        # included, and keeps every entry
+        stages = {k: getattr(article_replay, k) for k in (
+            "stage_train", "stage_classifier", "stage_raw_smoke", "stage_mlp_classifier")}
+
+        def ran_again(*a, **k):
+            raise AssertionError("a --resume of the replay ran a stage again")
+
+        os.chdir(tmp)
+        try:
+            for k in stages:
+                setattr(article_replay, k, ran_again)
+            t0 = time.perf_counter()
+            resumed = article_replay.main(article_replay.build_parser().parse_args(
+                argv + ["--resume"]))
+            resume_s = time.perf_counter() - t0
+        finally:
+            for k, v in stages.items():
+                setattr(article_replay, k, v)
+            os.chdir(cwd)
+        for key in ("classifier", "configs", "finger_trend"):
+            if resumed[key] != report[key]:
+                raise AssertionError(f"--resume changed the replay's {key}")
+        log(f"replay --resume: every stage skipped in {resume_s:.1f} s, the unidirectional "
+            f"reference config {json.dumps(report['classifier']['enhanced_r6d_reference_config_nonbidir'])}")
 
         t0 = time.perf_counter()
         fixture_err, fixture_worst = hold_fixture(os.path.join(work, "video_data"), tmp,
@@ -1850,6 +2110,9 @@ def replay_phase(fp32, robust_rows):
         "L1": {k: e["inference"]["L1"] for k, e in report["configs"].items()},
         "best_val": {k: e["train"]["best_val"] for k, e in report["configs"].items()},
         "classifier_val_acc": accs,
+        "reference_config_note": report["classifier"]["reference_config_note"],
+        "resume_s": resume_s,
+        "gifs": {k: e["inference"]["gifs"] for k, e in report["configs"].items()},
         "classifier_windows": report["classifier"]["windows"],
         "finger_trend": report["finger_trend_vs_article"],
         "fixture_max_abs": fixture_err,
@@ -2400,6 +2663,7 @@ def bf16_train(tmp, data_dir, data):
                 "--checkpoint", os.path.join(args.model_path, "lastCheckpoint_bf16.pth"),
                 "--base_path", tmp, "--data_dir", data_dir, "--infer_set", "val",
                 "--exp_name", "bf16", "--batch_size", str(TRAIN_BATCH), "--device", "cuda",
+                "--seqs_to_viz", "0",
             ] + (["--bf16"] if bf16 else []))
             inference.main(iargs)
             xyz[bf16] = np.asarray(io.load_binary(os.path.join(tmp, "results_bf16",
@@ -2561,13 +2825,16 @@ MESH_CLI_LOSS_RTOL = 1e-3
 
 
 def _mesh_step(kind, x, y, mesh, tp=False):
-    """(loss, state_dict, gradients) of one ``kind`` step of v1 arm2wh at
-    full width from the seeded weights, dropout 0, with or without a mesh;
-    split weights and their gradients gathered into the reference layout."""
+    """(loss, state_dict, gradients, Branches) of one ``kind`` step of v1
+    arm2wh at full width from the seeded weights, dropout 0, with or without
+    a mesh, its branches recorded; split weights and their gradients
+    gathered into the reference layout."""
     cfg = gan.GanConfig(loss="RobustLoss", disc_label_smooth=True, batch_size=x.shape[0],
                         dropout_rate=0.0)
     tr = gan.GanTrainer(cfg, device="cuda", mesh=mesh, tp=tp)
-    loss = float(tr._step(kind)(torch.from_numpy(x).to("cuda"), torch.from_numpy(y).to("cuda")))
+    with Branches() as branches:
+        loss = float(tr._step(kind)(torch.from_numpy(x).to("cuda"),
+                                    torch.from_numpy(y).to("cuda")))
     module = tr.generator if kind == "g" else tr.discriminator
     grads = {}
     for name, p in module.named_parameters():
@@ -2579,7 +2846,7 @@ def _mesh_step(kind, x, y, mesh, tp=False):
             g = mesh_lib.gather_split(g, owner.tp_dim, mesh)
         grads[name] = g.double().cpu()
     sd = tr.checkpoint_payload(0)["state_dict" if kind == "g" else "discriminator"]
-    return loss, {k: v.cpu() for k, v in sd.items()}, grads
+    return loss, {k: v.cpu() for k, v in sd.items()}, grads, branches
 
 
 def hold_same_step(head, got, want, lr):
@@ -2589,8 +2856,8 @@ def hold_same_step(head, got, want, lr):
     STEP_NOISE_FACTOR of the two evaluations' largest disagreement in its
     tensor (a sign Adam's first step may take either way; such an entry
     within 2 lr + STEP_ATOL), the mask at most STEP_MASKED_SHARE."""
-    loss, sd, grads = got
-    loss0, sd0, grads0 = want
+    loss, sd, grads = got[:3]
+    loss0, sd0, grads0 = want[:3]
     worst = worst_masked = worst_stat = grad_err = grad_max = 0.0
     masked = total = 0
     for k, w in sd0.items():
@@ -2673,7 +2940,7 @@ def mesh_cli(tmp, data_dir):
 
     ckpt = os.path.join(one, "experiment_checkpoint.pth")
     argv = ["--checkpoint", ckpt, "--data_dir", data_dir, "--infer_set", "val",
-            "--device", "cuda"]
+            "--device", "cuda", "--seqs_to_viz", "0"]
     cwd = os.getcwd()
     os.chdir(tmp)  # save_results writes root.pkl / bone_len.pkl to the cwd
     try:
@@ -2739,10 +3006,23 @@ def mesh_phase(clips=None, xyz=None, r6d=None):
 
             # the mesh path's G, D and val steps, DP and TP, held against them
             rl.robust_lossfun.launches = 0  # counts of the mesh steps start here
+            dp_g = _mesh_step("g", X, Y, mesh)
             rows["steps"] = [hold_same_step({"step": kind, "tp": tp, "batch": MESH_BATCH},
-                                            _mesh_step(kind, X, Y, mesh, tp), plain[kind],
+                                            dp_g if (kind, tp) == ("g", False)
+                                            else _mesh_step(kind, X, Y, mesh, tp), plain[kind],
                                             STEP_LR)
                              for kind in ("g", "d") for tp in (False, True)]
+            # the DP G step against float64 as hold_step holds the plain card
+            # step: the CPU's float32 step, float64 on its own branches and on
+            # each float32 step's (one rank holds the global batch, so the
+            # plain float64 step is the DP step's reference)
+            cpu = _one_step("g", X, Y, "cpu")
+            same = [_one_step("g", X, Y, "cpu", torch.float64, replay=run[3].taken)
+                    for run in (dp_g, cpu)]
+            rows["dp_g_float64"] = hold_step(
+                {"step": "g", "mesh": "DP, one NCCL rank", "batch": MESH_BATCH,
+                 "masked_share_against_plain": rows["steps"][0]["masked_share"]},
+                dp_g, cpu, _one_step("g", X, Y, "cpu", torch.float64), STEP_LR, same)
             for tp in (False, True):
                 got = float(gan.GanTrainer(cfg, device="cuda", mesh=mesh, tp=tp).val_step(xt, yt))
                 log(f"mesh val step (tp {tp}): {got} against {val}")
@@ -2993,7 +3273,8 @@ def main() -> int:
     t0 = time.perf_counter()
     raw_launches, raw = raw_phase(fp32)
     log(f"raw phase: {time.perf_counter() - t0:.1f} s")
-    robust_launches = train_phase(r6d)
+    robust_launches, viz, (X, Y) = train_phase(xyz, r6d)
+    utils = utils_phase(X, Y)
     mesh_filter, mesh_robust, mesh_rows = mesh_phase(clips, xyz, r6d)
     t0 = time.perf_counter()
     options_launches, options = options_phase(xyz, r6d)
@@ -3080,7 +3361,11 @@ def main() -> int:
         # step (one NCCL rank), its counts read alone
         "launches_mesh": mesh_robust,
         "mesh_traced_g_step": mesh_rows["traced_g_step"],
+        # one G step traced through utils/profiling: the kernel in its trace
+        "utils_trace": utils["trace"],
     }]
+    log(f"viz phase: {viz['case']} in {viz['seconds']:.1f} s; utils phase "
+        f"{utils['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -20,11 +20,18 @@ Chains, end to end, the workload the article and its launcher define
                        v2+text/arm_wh2finger1/RobustLoss (Table 2's corner;
                        every G and val step through ``robust_loss``).
   4. inference      -- L1 per split through the port's ``inference`` and its
-                       r6d/aa/xyz result pickles per config.
+                       r6d/aa/xyz result pickles per config; GIFs of the
+                       first ``--seqs_to_viz`` test sequences (default 2, as
+                       the root renders), their paths in the report.
   5. classifier     -- the LSTM topic classifier on the ground-truth r6d and
                        on the enhanced r6d of the same windows (the article's
-                       surrogate evaluation, §5.2), the reference-config and
-                       ablation classifiers on request, and the text MLP.
+                       surrogate evaluation, §5.2), the reference-config
+                       (1024x10 bidirectional) and ablation classifiers on
+                       request, the unidirectional reference config on
+                       request (``--refcfg_nonbidir_epochs``: the root's
+                       ``refcfg_nonbidir_followup.py``, here a stage of the
+                       replay writing into its own report), and the text
+                       MLP.
   6. finger trend   -- with ``--fingers``, one v2+text RobustLoss run per
                        masked-finger count K (Table 2's series).
 
@@ -38,10 +45,11 @@ its first flush on.  On the synthetic fixture the absolute numbers are not
 the article's; ``--data_dir`` with the real pickles gives the real table.
 
 Runs on one CUDA device unless ``--device cpu``; asking for CUDA where
-there is none raises before any work.  Not ported: the root's GIF output of
-two test sequences (``seqs_to_viz``: the port's inference CLI renders
-none) and its recovery helpers for a mirrored work directory and for
-reports older than the fixture fingerprint.
+there is none raises before any work, and so does ``--seqs_to_viz`` above 0
+where matplotlib or PIL cannot be imported (pass ``--seqs_to_viz 0``).  The
+GIFs go where the root's do, to ``viz_results_{config}_test`` in the
+working directory.  Not ported: the root's recovery helpers for a mirrored
+work directory and for reports older than the fixture fingerprint.
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
     resolve_device,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.viz import viz_3d
 
 # article-published numbers (BASELINE.md; article Tables 1/2, §4.1.3, §5.2)
 ARTICLE_REFERENCE = {
@@ -369,10 +378,10 @@ def stage_train(cfg, data_dir, model_dir, args):
 
 def stage_infer(cfg, data_dir, model_dir, args, prior=None, on_split=None,
                 splits=("train", "val", "test")):
-    res = {"L1": {}, "wall_s": {}}
+    res = {"L1": {}, "wall_s": {}, "gifs": {}}
     if prior:  # --resume: keep already-measured splits
-        res["L1"].update(prior.get("L1", {}))
-        res["wall_s"].update(prior.get("wall_s", {}))
+        for key in res:
+            res[key].update(prior.get(key, {}))
 
     # A split only counts as resumable if its result pickles are still on
     # disk: the classifier stages read them
@@ -395,8 +404,8 @@ def stage_infer(cfg, data_dir, model_dir, args, prior=None, on_split=None,
             print(f"[infer {cfg['name']}/{split}] report has L1 "
                   f"{res['L1'][split]:.4f} but result pickles are "
                   f"missing from {res_dir} — re-running", flush=True)
-            res["L1"].pop(split, None)
-            res["wall_s"].pop(split, None)
+            for key in res:
+                res[key].pop(split, None)
         ns = inference.build_parser().parse_args([])
         ns.checkpoint = os.path.join(
             model_dir, f"lastCheckpoint_{cfg['name']}.pth"
@@ -413,10 +422,13 @@ def stage_infer(cfg, data_dir, model_dir, args, prior=None, on_split=None,
         # launcher passes 1000); -1 takes every window
         ns.num_samples = args.num_samples if args.num_samples > 0 else 10**9
         ns.device = args.device
+        ns.seqs_to_viz = args.seqs_to_viz if split == "test" else 0
         t0 = time.perf_counter()
-        err = inference.main(ns)
+        err, gifs = inference.run(ns)
         res["L1"][split] = float(err)
         res["wall_s"][split] = time.perf_counter() - t0
+        if gifs:
+            res["gifs"][split] = [os.path.abspath(g) for g in gifs]
         print(f"[infer {cfg['name']}/{split}] L1 {err:.4f} "
               f"({res['wall_s'][split]:.1f}s)", flush=True)
         if on_split is not None:
@@ -597,6 +609,28 @@ def stage_mlp_classifier(data_dir, model_dir, args):
             "epochs": ns.num_epochs}
 
 
+def _reference_config_note(cls, report):
+    """What the unidirectional reference-config classifier showed, in this
+    run's own numbers, beside the bidirectional one when it ran."""
+    chance = 1.0 / report.get("fixture_notes", {}).get("n_classes", 9)
+    uni = cls["enhanced_r6d_reference_config_nonbidir"]
+    acc = uni["best_val_acc"]
+    verdict = "learns above chance" if acc > chance + 0.05 else "stays at chance"
+    note = (f"The reference's classifier CLI defaults to a unidirectional LSTM "
+            f"(--bidir 'False', H2Sclassifier/Train_Test/main.py:155).  At "
+            f"{uni['hidden']}x{uni['layers']} unidirectional, {uni['epochs']} epochs, it "
+            f"{verdict}: best val acc {acc:.4f}, chance {chance:.3f}")
+    bidir = cls.get("enhanced_r6d_reference_config")
+    if bidir:
+        note += (f"; bidirectional at {bidir['hidden']}x{bidir['layers']}, "
+                 f"{bidir['epochs']} epochs: {bidir['best_val_acc']:.4f}")
+    shallow = cls.get("enhanced_r6d")
+    if shallow:
+        note += (f"; the replay's {shallow['hidden']}x{shallow['layers']} classifier on "
+                 f"the same pickles: {shallow['best_val_acc']:.4f}")
+    return note + "."
+
+
 def _flush_report(report, out_path):
     """Persist the report after every stage: a temporary file renamed over
     the report, so that a run cut anywhere leaves the last whole report."""
@@ -675,6 +709,8 @@ def main(args):
     root script does): each config's ``load_data`` reads the same train and
     val pickles.  The variable and the cache are cleared on the way out."""
     resolve_device(args.device)  # refuse before any work
+    if args.seqs_to_viz > 0:
+        viz_3d.require()
     owned = "MHPE_LOAD_DATA_CACHE" not in os.environ
     if owned:
         os.environ["MHPE_LOAD_DATA_CACHE"] = "1"
@@ -876,6 +912,21 @@ def _replay(args):
                 sel=get_sel(),
             )
             _flush_report(report, args.out)
+        if (
+            args.refcfg_nonbidir_epochs > 0
+            and "enhanced_r6d_reference_config_nonbidir" not in cls
+        ):
+            # the reference's own default, unidirectional, on the same
+            # enhanced pickles (the root's refcfg_nonbidir_followup.py)
+            nargs = argparse.Namespace(**{
+                **vars(args), **REFERENCE_CLASSIFIER, "classifier_bidir": False,
+                "classifier_epochs": args.refcfg_nonbidir_epochs})
+            entry = stage_classifier("enhanced_refcfg_nonbidir", res_dir, data_dir,
+                                     model_dir, nargs, sel=get_sel())
+            cls["enhanced_r6d_reference_config_nonbidir"] = dict(entry, bidir=False)
+            cls["reference_config_note"] = _reference_config_note(cls, report)
+            print(f"[classifier] {cls['reference_config_note']}", flush=True)
+            _flush_report(report, args.out)
         if args.anomaly_controls:
             stage_anomaly_controls(cls, work, data_dir, model_dir, args,
                                    sel=get_sel())
@@ -1024,6 +1075,17 @@ def build_parser():
                    "bidir, H2Sclassifier/Train_Test/main.py:143-160) at "
                    "--reference_classifier_epochs")
     p.add_argument("--reference_classifier_epochs", type=int, default=20)
+    p.add_argument("--refcfg_nonbidir_epochs", type=int, default=0,
+                   help="also train the enhanced-r6d classifier at the "
+                   "reference's config with its own default direction, "
+                   "unidirectional (hidden 1024 x 10 layers, remat, the "
+                   "dataset on the device, --classifier_batch), for this "
+                   "many epochs, after the bidirectional one; 0 skips it "
+                   "(the root's refcfg_nonbidir_followup.py runs 60)")
+    p.add_argument("--seqs_to_viz", type=int, default=2,
+                   help="test sequences of each config rendered to GIFs "
+                   "(the root renders 2); needs matplotlib and PIL, 0 "
+                   "renders none")
     p.add_argument("--device", type=str, default="cuda", help="'cuda' or 'cpu'")
     return p
 

@@ -11,12 +11,18 @@ train-time statistics, runs the generator's eval forward (on CUDA unless
 ``--device cpu``), de-standardizes and writes the r6d/aa/xyz result
 pickles.  The checkpoint is a reference ``.pth`` or a JAX-package ``.pkl``.
 ``--bf16`` runs the forward in bfloat16 (outputs back in float32), as the
-root CLI's.  Rendering GIFs and the root CLI's ``--matmul_precision
-bfloat16`` (XLA's one-pass bfloat16 product of float32 operands) are not
-ported.  Launched by ``python -m torch.distributed.run``, every rank loads
-the windows, the batches are sharded over a mesh of all ranks
-(``run_inference(mesh=...)``, NCCL on ``cuda:LOCAL_RANK``, gloo with
-``--device cpu``) and rank 0 alone prints and writes the results.
+root CLI's.  Then, as the root CLI does, the first ``--seqs_to_viz`` clips
+(default 2) of the xyz result are rendered to GIFs in
+``viz_results_{exp_name}_{infer_set}`` (``viz/viz_3d``), and with
+``--use_wandb`` the event and each GIF go to ``utils/metrics.MetricsSink``.
+GIFs need matplotlib and PIL: without them the CLI refuses before any work
+unless ``--seqs_to_viz 0``.  ``--tag`` is accepted and unused, as in the
+root CLI.  The root CLI's ``--matmul_precision bfloat16`` (XLA's one-pass
+bfloat16 product of float32 operands) is not ported.  Launched by ``python
+-m torch.distributed.run``, every rank loads the windows, the batches are
+sharded over a mesh of all ranks (``run_inference(mesh=...)``, NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and rank 0 alone prints,
+writes the results and renders.
 """
 
 from __future__ import annotations
@@ -31,7 +37,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
     standardize as std_lib,
     windows as win_lib,
 )
-from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.io import save_binary
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.io import (
+    load_binary,
+    save_binary,
+)
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import registry
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
     multihost,
@@ -42,12 +51,24 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train.checkpoi
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constants import (
     FEATURE_MAP,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.metrics import (
+    MetricsSink,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.viz import viz_3d
 
 
 def main(args):
     """Enhance the split; returns the mean L1 error (every rank)."""
+    return run(args)[0]
+
+
+def run(args):
+    """``main``'s work: (the mean L1 error, the paths of the GIFs this rank
+    rendered)."""
     if args.require_text and args.require_image:
         raise ValueError("--require_text and --require_image exclude each other")
+    if args.seqs_to_viz > 0:
+        viz_3d.require()  # refuse before any work
     mesh, device = multihost.start(args.device)
     with multihost.main_output_only(mesh):
         return _infer(args, mesh, device)
@@ -107,7 +128,7 @@ def _infer(args, mesh, device):
     )
     print(">>> TOTAL ERROR: ", error, flush=True)
     if mesh is not None and mesh.rank != 0:
-        return error
+        return error, []
 
     output = (output * sY + mY).astype(np.float32)
     xyz_path = infer_lib.save_results(
@@ -122,7 +143,19 @@ def _infer(args, mesh, device):
             os.path.join(os.path.dirname(xyz_path), f"sel_indices_{args.infer_set}.pkl"),
         )
     print("Saved results.", flush=True)
-    return error
+    gifs = []
+    if args.seqs_to_viz > 0 and xyz_path:
+        xyz = load_binary(xyz_path)[: args.seqs_to_viz]
+        gifs = viz_3d.viz(xyz, frame_rate=2,
+                          results_dir=f"viz_results_{args.exp_name}_{args.infer_set}")
+        print(f"rendered {len(gifs)} GIFs", flush=True)
+        if args.use_wandb:
+            sink = MetricsSink(args.exp_name, use_wandb=True)
+            sink.log({"event": "inference", "error": error, "gifs": len(gifs)})
+            for path in gifs:
+                sink.save_file(path)
+            sink.close()
+    return error, gifs
 
 
 def build_parser():
@@ -135,13 +168,16 @@ def build_parser():
     p.add_argument("--require_image", action="store_true", help="use per-frame image features as input (b2h)")
     p.add_argument("--embeds_type", type=str, default="normal", help='"normal" or "average" text embeds')
     p.add_argument("--infer_set", type=str, default="test", help="split to run on")
+    p.add_argument("--tag", type=str, default="", help="naming prefix; accepted and unused, as in the root CLI")
     p.add_argument("--batch_size", type=int, default=128, help="inference batch size")
+    p.add_argument("--seqs_to_viz", type=int, default=2, help="number of sequences to render as GIFs (needs matplotlib and PIL; 0 renders none)")
     p.add_argument("--exp_name", type=str, default="experiment", help="experiment name")
     p.add_argument("--model", type=str, default="v1", help="model architecture: v1, b2h, v2, v4 or v4_deeper")
     p.add_argument("--default_size", type=int, default=256, help="generator embed width the checkpoint was trained with")
     p.add_argument("--num_samples", type=int, default=3000, help="number of sequences to predict")
     p.add_argument("--bf16", action="store_true", help="EXTENSION: run the forward in bfloat16")
     p.add_argument("--matmul_precision", type=str, default="float32", help="'float32' (TF32 off) or 'tensorfloat32'")
+    p.add_argument("--use_wandb", action="store_true", help="log the event and save the GIFs through the metrics sink (and wandb when it imports)")
     p.add_argument("--device", type=str, default="cuda", help="'cuda' or 'cpu'")
     return p
 

@@ -2,7 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>-<digest>.so`` at the repository root (the digest
-covers the source and the flags, so an edited source rebuilds), with
+covers the source, the flags and the toolchain's own words for itself,
+``utils/platform.toolchain_fingerprint`` of ``nvcc`` and of the ``g++``
+named to it by ``-ccbin``, so an edited source rebuilds and a library that
+another ``nvcc`` or host compiler built is never loaded), with
 ``ptxas``'s register and spill report kept beside it as ``<lib>.ptxas``,
 and loaded with ``ctypes``; ``bind`` sets a C entry's argument types once,
 and ``launch`` calls it on PyTorch's current stream.  ``sass`` lists a built
@@ -26,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils import platform
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -48,13 +53,16 @@ def _tool(name: str) -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit")
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit and g++")
 
 
 def library(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is built."""
+    """Where the library of ``csrc/<name>.cu`` is built: its name holds a
+    digest of the source, the flags and the toolchain's fingerprint."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    toolchain = platform.toolchain_fingerprint(_tool("nvcc"), _tool("g++"))
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                            + toolchain.encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -71,7 +79,8 @@ def _compile(names) -> None:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_tool("nvcc"), *NVCC_FLAGS, "-ccbin", _tool("g++"), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         running[name] = (proc, tmp, out, report, time.perf_counter())

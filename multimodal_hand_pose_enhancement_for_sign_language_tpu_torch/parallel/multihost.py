@@ -6,8 +6,9 @@ PyTorch counterpart of the JAX package's ``parallel/multihost.py``:
     ``python -m torch.distributed.run`` sets (RANK, WORLD_SIZE, LOCAL_RANK,
     MASTER_ADDR, MASTER_PORT); False without it, so a plain run stays one
     process,
-  * ``local_batch_slice(n)`` -- the [start, stop) rows of a global batch
-    this process feeds,
+  * ``local_batch_slice(n, mesh)`` -- the [start, stop) rows of a global
+    batch this process feeds: block ``mesh.data_index`` of the mesh's data
+    axis, so the tensor-parallel peers of a data index feed the same rows,
   * ``global_batch_array(rows, mesh)`` -- a sharded batch from each rank's
     own rows, which the trainers' steps take like ``shard_batch``'s output,
   * ``device_for_rank()`` -- ``cuda:LOCAL_RANK``,
@@ -80,20 +81,29 @@ def is_main() -> bool:
     return int(os.environ.get("RANK", 0)) == 0
 
 
-def local_batch_slice(global_batch: int) -> slice:
-    """Rows of the global batch this process owns (an equal split)."""
-    n = dist.get_world_size() if dist.is_initialized() else 1
-    i = dist.get_rank() if dist.is_initialized() else 0
+def local_batch_slice(global_batch: int, mesh: Mesh = None) -> slice:
+    """Rows of the global batch this process feeds: with ``mesh``, block
+    ``mesh.data_index`` of ``mesh.shape['data']`` equal blocks, which every
+    rank of that data index (its tensor-parallel peers) feeds alike, as the
+    JAX package's split by process gives on one host; without one, block
+    ``rank`` of an equal split over every rank (pure data parallelism, or
+    one process)."""
+    if mesh is not None:
+        n, i = mesh.shape["data"], mesh.data_index
+    else:
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        i = dist.get_rank() if dist.is_initialized() else 0
     if global_batch % n:
-        raise ValueError(f"global batch {global_batch} must divide across {n} processes")
+        raise ValueError(f"global batch {global_batch} must divide into {n} blocks")
     per = global_batch // n
     return slice(i * per, (i + 1) * per)
 
 
 def global_batch_array(local_rows, mesh: Mesh) -> Sharded:
-    """This rank's rows (numpy or tensor, its block of the global batch in
-    data-index order) as a sharded batch on the mesh's device.  Every rank
-    of the data group must pass as many rows (checked: a collective)."""
+    """This rank's rows (numpy or tensor: ``local_batch_slice(n, mesh)`` of
+    the global batch, its block in data-index order) as a sharded batch on
+    the mesh's device.  Every rank of the data group must pass as many rows
+    (checked: a collective)."""
     rows = _as_tensor(np.asarray(local_rows) if not torch.is_tensor(local_rows)
                       else local_rows, mesh.device)
     counts = gather_rows(torch.tensor([rows.shape[0]], device=mesh.device),

@@ -18,7 +18,8 @@ REPORT = "ptxas info    : Used 40 registers, 0 bytes spill stores, 0 bytes spill
 def fake_toolkit(tmp_path, monkeypatch):
     """csrc/ with two sources, an empty build directory, and an ``nvcc`` that
     prints a ptxas report, writes its ``-o`` file and logs each call; with
-    ``FAIL`` in a source it prints an error and exits 1."""
+    ``FAIL`` in a source it prints an error and exits 1; ``--version``
+    prints a version line and is not logged."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for name in ("a", "b"):
@@ -28,6 +29,8 @@ def fake_toolkit(tmp_path, monkeypatch):
     nvcc.write_text(
         f"#!{sys.executable}\n"
         "import sys\n"
+        "if sys.argv[1:] == ['--version']:\n"
+        "    print('stand-in nvcc, release 0.0'); sys.exit(0)\n"
         "src = sys.argv[-1]\n"
         f"open({str(calls)!r}, 'a').write(src + '\\n')\n"
         "if 'FAIL' in open(src).read():\n"

@@ -246,7 +246,7 @@ def test_inference_cli_serves_the_checkpoint_as_the_root_cli(runs, tmp_path,
                         f"{train_args.exp_name}_checkpoint." + source[-3:])
     monkeypatch.chdir(tmp_path)  # both CLIs write root.pkl / bone_len.pkl here
     iargs = _infer_args(t_inference, train_args, ckpt, tmp_path / "port")
-    iargs.default_size, iargs.device = SIZE, "cpu"
+    iargs.default_size, iargs.device, iargs.seqs_to_viz = SIZE, "cpu", 0
     err = t_inference.main(iargs)
 
     rargs = _infer_args(root_inference, train_args, ckpt, tmp_path / "jax")

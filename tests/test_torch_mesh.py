@@ -43,6 +43,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -255,6 +256,16 @@ def _job4(inputs, out_dir):
     """Every 4-rank check (mesh 2 x 2)."""
     mesh = mesh_lib.get_mesh(model_axis=2)
     res = {"steps": _steps(inputs["state"], mesh, tp=True)}
+
+    # the TP G step from each rank's rows of its data index (multihost)
+    x, y = _batch()
+    rows = multihost.local_batch_slice(B, mesh)
+    res["slice"] = (rows.start, rows.stop)
+    tr = _trainer(inputs["state"], mesh=mesh, tp=True)
+    res["gba_loss"] = float(tr.g_step(multihost.global_batch_array(x[rows], mesh),
+                                      multihost.global_batch_array(y[rows], mesh)))
+    res["gba_g_sd"] = tr.checkpoint_payload(0)["state_dict"]
+    res["gba_g_grads"] = _grads(tr, tr.generator)
     res["filter64"] = [a.numpy() for a in sequence.filter_xyz_time_sharded(
         *_filter_inputs(64, 1), mesh, n_cycles=50)]
     res["filter1920"] = [a.numpy() for a in sequence.filter_xyz_time_sharded(
@@ -537,6 +548,18 @@ def test_global_batch_array_takes_each_ranks_rows(ranks):
             assert torch.equal(v, res["steps"]["g_sd"][k]), k
 
 
+def test_tp_peers_feed_their_data_indexs_rows(ranks):
+    """data 2 x model 2: each rank's ``local_batch_slice(B, mesh)`` rows
+    through ``global_batch_array`` take the TP G step of the global batch
+    (the step tolerances, the mask at most 1e-3), because the two TP peers
+    of a data index feed the same rows: block ``data_index`` of 2."""
+    for res in ranks["four"]:
+        want = res["steps"]
+        assert abs(res["gba_loss"] - want["g_loss"]) <= STEP_RTOL * max(1.0, abs(want["g_loss"]))
+        assert _hold(res["gba_g_sd"], res["gba_g_grads"], want["g_sd"]) <= MASKED_SHARE
+    assert [r["slice"] for r in ranks["four"]] == [(0, 4), (0, 4), (4, 8), (4, 8)]
+
+
 def test_dp_dropout_masks_are_the_global_batchs(ranks):
     """Dropout 0.5: the 2-rank G and D steps equal one device's."""
     x, y = (torch.from_numpy(a) for a in _batch())
@@ -648,6 +671,23 @@ def test_multihost_without_torchrun(monkeypatch):
     assert multihost.is_main()
     with pytest.raises(RuntimeError, match="initialized"):
         mesh_lib.get_mesh()
+
+
+@pytest.mark.parametrize("data,model", [(2, 2), (4, 1), (1, 4)])
+def test_local_batch_slice_is_the_data_indexs_block(data, model):
+    """With a mesh, rank r feeds block r // model of ``data`` blocks; a batch
+    that does not divide into them is refused."""
+    got = []
+    for rank in range(data * model):
+        mesh = SimpleNamespace(shape={"data": data, "model": model},
+                               data_index=rank // model)
+        s = multihost.local_batch_slice(8, mesh)
+        got.append((s.start, s.stop))
+    per = 8 // data
+    assert got == [((r // model) * per, (r // model + 1) * per) for r in range(data * model)]
+    if data > 1:
+        with pytest.raises(ValueError, match="divide"):
+            multihost.local_batch_slice(8 * data + 1, mesh)
 
 
 def test_mesh_refuses_a_device_its_backend_does_not_serve(tmp_path):

@@ -27,9 +27,15 @@ Checked:
   accuracies within one val window's share;
 * the port alone at ``tiny`` on the CPU with the raw smoke, two fingers,
   the reference-config classifier (at narrow width) and the anomaly
-  controls; ``--resume`` reuses every stage verbatim, also after the report
-  is deleted and after the fixture is wiped and regenerated; the report is
+  controls, each configuration's two test GIFs in the report;
+  ``--resume`` reuses every stage verbatim, also after the report is
+  deleted and after the fixture is wiped and regenerated; the report is
   written with no ``.prior`` or temporary file beside it;
+* the unidirectional reference-config stage (``--refcfg_nonbidir_epochs
+  1``, the root's ``refcfg_nonbidir_followup.py``) on a resumed replay:
+  its key and note in the replay's own report, through its flush, every
+  other entry as it was, no file of the repository written, and skipped
+  on the next ``--resume``;
 * ``--device`` defaults to CUDA and refuses before any work without it.
 
 The comparison's tolerance.  1e-5 relative is the train CLI's
@@ -45,6 +51,11 @@ past its first epoch the second configuration is held against float64, at
 1e-5 x (1e-3 / 1e-4): at epoch 2 the root's G train loss is 4.3e-4 from
 float64's and the port's 5.0e-5 (when this was written).
 
+The port's GIFs are rendered from the first 2 frames of each clip (the
+renderer wrapped for the whole module): a 192-frame window takes ~40 s on
+the CPU.  The renderer itself is held against the JAX package's on whole
+clips in tests/test_torch_viz.py.
+
 The D epoch's loss is held from one state, because from the runs' own
 states it is ill-conditioned in G's weights: D sees ``calc_motion`` of G's
 output, differences of nearly equal frames (a per-channel spread of ~3e-3
@@ -59,10 +70,12 @@ import functools
 import json
 import os
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import jax
 import jax.numpy as jnp
@@ -105,12 +118,27 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
     checkpoint as t_ckpt,
     gan as t_gan,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.viz import viz_3d as t_viz
 
+ROOT = Path(__file__).resolve().parents[1]
 LOSS_RTOL = 1e-5  # the train CLI's tolerance at lr 1e-4 (tests/test_torch_train_cli.py)
 SIZE = 32  # generator width of the replay comparisons
 TINY = ["--scale", "tiny", "--epochs", "4", "--batch_size", "8",
         "--classifier_epochs", "2", "--classifier_batch", "8",
         "--classifier_hidden", "16"]
+
+
+GIF_FRAMES = 2  # frames of each clip the replay's GIFs are rendered from here
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _short_gifs():
+    """The port's renderer on the first GIF_FRAMES frames of each clip."""
+    real = t_viz.viz
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_viz, "viz", lambda xyz, **kw: real(
+            [np.asarray(c)[:GIF_FRAMES] for c in xyz], **kw))
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -374,7 +402,7 @@ def both(tmp_path_factory):
             **{**kw, "dropout_rate": 0.0, "default_size": SIZE}))
         mp.setattr(root_inference.registry, "build_generator",
                    functools.partial(j_registry.build_generator, default_size=SIZE))
-        mp.setattr(root_inference.viz_3d, "viz", lambda *a, **k: [])  # GIFs: not ported
+        mp.setattr(root_inference.viz_3d, "viz", lambda *a, **k: [])  # tests/test_torch_viz.py
         mp.setattr(root_cls_cli, "build_parser",
                    _with_defaults(root_cls_cli, dropout=0.0))
         argv = TINY + ["--skip_raw_smoke",
@@ -624,8 +652,18 @@ def test_replay_alone_runs_every_stage(alone):
     d, report = alone
     on_disk = json.loads((d / "AR.json").read_text())
     assert on_disk == json.loads(json.dumps(report))
-    assert sorted(os.listdir(d)) == ["AR.json", "GT_predY.csv", "bone_len.pkl",
-                                     "root.pkl", "work"]  # no .prior, no .tmp
+    names = [c["name"] for c in t_replay.CONFIGS] + [
+        f"arm_wh2finger{k}_v2_text_RobustLoss_trend" for k in (1, 2)]
+    assert sorted(os.listdir(d)) == sorted(
+        ["AR.json", "GT_predY.csv", "bone_len.pkl", "root.pkl", "work"]
+        + [f"viz_results_{n}_test" for n in names])  # no .prior, no .tmp
+    for entry in (*on_disk["configs"].values(), *on_disk["finger_trend"].values()):
+        gifs = entry["inference"]["gifs"]
+        assert list(gifs) == ["test"]  # the test split alone, as the root
+        assert [os.path.basename(p) for p in gifs["test"]] == ["0.gif", "1.gif"]
+        for p in gifs["test"]:
+            with Image.open(p) as im:
+                assert im.n_frames == GIF_FRAMES
     assert on_disk["completed"] is True and on_disk["core_completed"] is True
     raw = on_disk["raw_pipeline_smoke"]
     assert raw["wall_s"] > 0 and "r6d_train.pkl" in raw["artifacts"]
@@ -721,6 +759,47 @@ def test_resume_after_the_fixture_is_regenerated(alone, tmp_path, monkeypatch,
     assert trained == [c["name"] for c in t_replay.CONFIGS]
     assert "classifier" not in third and "finger_trend" not in third
     assert third["fixture"]["fingerprint"] != first["fixture"]["fingerprint"]
+
+
+def test_refcfg_nonbidir_stage_writes_into_the_replays_report(alone, tmp_path, monkeypatch,
+                                                             narrow):
+    first = _copy(alone, tmp_path)
+    monkeypatch.chdir(tmp_path)
+    repo_files = {p: p.stat().st_mtime_ns for p in ROOT.glob("ARTICLE_REPLAY*.json")}
+    for stage in ("stage_train", "stage_raw_smoke", "stage_mlp_classifier"):
+        monkeypatch.setattr(t_replay, stage, None)  # any call would raise
+    ran = []
+    real = t_replay.stage_classifier
+
+    def spy(tag, r6d_dir, data_dir, model_dir, args, sel=None):
+        ran.append((tag, args.classifier_bidir, args.classifier_epochs, r6d_dir))
+        return real(tag, r6d_dir, data_dir, model_dir, args, sel=sel)
+
+    monkeypatch.setattr(t_replay, "stage_classifier", spy)
+    args = _alone_args(tmp_path)
+    args.resume, args.refcfg_nonbidir_epochs = True, 1
+    report = t_replay.main(args)
+    res_dir = str(tmp_path / "work" / f"results_{t_replay.CONFIGS[0]['name']}")
+    assert ran == [("enhanced_refcfg_nonbidir", False, 1, res_dir)]
+    on_disk = json.loads((tmp_path / "AR.json").read_text())
+    assert on_disk == json.loads(json.dumps(report))
+    cls = on_disk["classifier"]
+    uni = cls["enhanced_r6d_reference_config_nonbidir"]
+    assert (uni["hidden"], uni["layers"], uni["epochs"], uni["bidir"]) == (24, 3, 1, False)
+    assert 0.0 <= uni["best_val_acc"] <= 1.0 and uni["wall_s"] > 0
+    assert f"{uni['best_val_acc']:.4f}" in cls["reference_config_note"]
+    assert "unidirectional" in cls["reference_config_note"]
+    assert {k: v for k, v in cls.items() if k not in (
+        "enhanced_r6d_reference_config_nonbidir", "reference_config_note")} == first["classifier"]
+    for key in STAGES:
+        if key != "classifier":
+            assert on_disk[key] == first[key], key
+    assert not any(n.endswith((".tmp", ".prior")) for n in os.listdir(tmp_path))
+    assert {p: p.stat().st_mtime_ns for p in ROOT.glob("ARTICLE_REPLAY*.json")} == repo_files
+
+    monkeypatch.setattr(t_replay, "stage_classifier", None)  # resumed: skipped
+    again = t_replay.main(args)
+    assert again["classifier"] == cls
 
 
 # (e) the device ------------------------------------------------------------

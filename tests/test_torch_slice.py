@@ -211,7 +211,8 @@ def test_port_clis_match_the_root_inference_cli(tmp_path, monkeypatch, rng):
     (tmp_path / "port").mkdir()
     (tmp_path / "jax").mkdir()
     err_port = t_inference.main(t_inference.build_parser().parse_args(
-        common + ["--base_path", str(tmp_path / "port"), "--device", "cpu"]))
+        common + ["--base_path", str(tmp_path / "port"), "--device", "cpu",
+                  "--seqs_to_viz", "0"]))
     err_jax = root_inference.main(root_inference.build_parser().parse_args(
         common + ["--base_path", str(tmp_path / "jax"), "--seqs_to_viz", "0",
                   "--matmul_precision", "float32"]))

@@ -238,6 +238,7 @@ def test_inference_cli_reads_the_trained_checkpoint(trained, monkeypatch):
     iargs.batch_size = 4
     iargs.default_size = SIZE
     iargs.device = "cpu"
+    iargs.seqs_to_viz = 0
     err = t_inference.main(iargs)
     assert np.isfinite(err)
     xyz = load_binary(os.path.join(args.base_path, "results_drop", "xyz_test.pkl"))

@@ -123,8 +123,8 @@ before any work naming the package, and ``--seqs_to_viz 0`` must serve.
 
 Utils (after training): ``nan_guard.tree_check_finite`` on a trainer's CUDA
 state after one G step (nothing; one NaN planted in a gradient, by name),
-``profiling.trace`` around one G step (``robust_loss_kernel`` and an
-``annotate`` region in its Chrome trace), ``ops/build.library``'s name
+``profiling.trace`` around one G step (``robust_loss_kernel`` and a
+``span`` region in its Chrome trace), ``ops/build.library``'s name
 under another toolchain text.
 
 Mesh (after training): the multi-device paths (``parallel/``) in-process
@@ -1312,7 +1312,7 @@ def utils_phase(X, Y):
     """``nan_guard.tree_check_finite`` on a trainer's CUDA state after one G
     step (nothing reported; one NaN planted in a gradient, reported by
     name), ``profiling.trace`` around one G step (its Chrome trace must hold
-    ``robust_loss_kernel`` and the ``annotate`` region; a session that loses
+    ``robust_loss_kernel`` and the ``span`` region; a session that loses
     the CUDA record gets a second, and two in a row fail), and
     ``ops/build.library``'s name under a changed toolchain text.  Returns
     the phase's row."""
@@ -1336,7 +1336,7 @@ def utils_phase(X, Y):
     for sessions in (1, 2):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as log_dir:
             with profiling.trace(log_dir):
-                with profiling.annotate(region):
+                with profiling.span(region):
                     tr.g_step(xt, yt)
             (trace_file,) = os.listdir(log_dir)
             with open(os.path.join(log_dir, trace_file)) as f:
@@ -1350,7 +1350,7 @@ def utils_phase(X, Y):
             break
     else:
         raise AssertionError("two profiling.trace sessions in a row lost robust_loss_kernel")
-    row["trace"] = {"events": len(events), "robust_loss_kernel": kernel, "annotate": annotated,
+    row["trace"] = {"events": len(events), "robust_loss_kernel": kernel, "span": annotated,
                     "sessions": sessions}
 
     lib = build.library("robust_loss")

@@ -44,6 +44,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.constant
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
     resolve_device,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.profiling import span
 
 _TF32 = {"float32": False, "tensorfloat32": True}
 
@@ -87,43 +88,50 @@ def run_inference(model, test_X, test_feats=None, batch_size: int = 128,
     inputs): a batch whose rows divide 'data' is split, each rank runs its
     rows and the outputs are all-gathered; the others (the partial last
     batch) run whole on every rank.  Every rank returns the whole output.
+    With the tracer on (``utils/profiling``) the call is the span
+    ``infer.run``, and each batch's copy in, forward and copy out the spans
+    ``infer.h2d``, ``infer.forward`` and ``infer.d2h``.
     """
-    if needs_feats(model) and test_feats is None:
-        raise ValueError("the model is conditioned on features: pass test_feats")
-    dev = resolve_device(device)
-    if mesh is not None:
-        mesh.check_device(dev)
-    model = model.to(dev).eval()
-    dtype = torch.float32
-    if bf16:
-        dtype = torch.bfloat16
-        model = copy.deepcopy(model).to(dtype)  # the caller's model stays float32
-    outputs = []
-    error = 0.0
-    total_steps = 0
-    n = min(test_X.shape[0], num_samples)
-    with torch.no_grad(), conv_matmul_precision(matmul_precision):
-        for start in range(0, n, batch_size):
-            end = min(start + batch_size, test_X.shape[0])
-            x = torch.from_numpy(np.ascontiguousarray(test_X[start:end])).to(dev, dtype)
-            f = None
-            if test_feats is not None:
-                f = torch.from_numpy(np.ascontiguousarray(test_feats[start:end])).to(
-                    dev, dtype)
-            if mesh is not None and x.shape[0] % mesh.shape["data"] == 0:
-                x, f = mesh_lib.local_rows((x, f), mesh)[0]
-                y = model(x.transpose(1, 2), f).transpose(1, 2)
-                y = mesh_lib.gather_rows(y, mesh.data_group, mesh.shape["data"])
-            else:
-                y = model(x.transpose(1, 2), f).transpose(1, 2)
-            y = y.float().cpu().numpy()
-            outputs.append(y)
-            total_steps += 1
-            if test_Y is not None:
-                error += float(np.mean(np.abs(y - test_Y[start:end]))) * batch_size
-    output = np.concatenate(outputs, axis=0)
-    mean_err = error / max(total_steps * batch_size, 1) if test_Y is not None else None
-    return output, mean_err
+    with span("infer.run"):
+        if needs_feats(model) and test_feats is None:
+            raise ValueError("the model is conditioned on features: pass test_feats")
+        dev = resolve_device(device)
+        if mesh is not None:
+            mesh.check_device(dev)
+        model = model.to(dev).eval()
+        dtype = torch.float32
+        if bf16:
+            dtype = torch.bfloat16
+            model = copy.deepcopy(model).to(dtype)  # the caller's model stays float32
+        outputs = []
+        error = 0.0
+        total_steps = 0
+        n = min(test_X.shape[0], num_samples)
+        with torch.no_grad(), conv_matmul_precision(matmul_precision):
+            for start in range(0, n, batch_size):
+                end = min(start + batch_size, test_X.shape[0])
+                with span("infer.h2d"):
+                    x = torch.from_numpy(np.ascontiguousarray(test_X[start:end])).to(dev, dtype)
+                    f = None
+                    if test_feats is not None:
+                        f = torch.from_numpy(np.ascontiguousarray(test_feats[start:end])).to(
+                            dev, dtype)
+                with span("infer.forward"):
+                    if mesh is not None and x.shape[0] % mesh.shape["data"] == 0:
+                        x, f = mesh_lib.local_rows((x, f), mesh)[0]
+                        y = model(x.transpose(1, 2), f).transpose(1, 2)
+                        y = mesh_lib.gather_rows(y, mesh.data_group, mesh.shape["data"])
+                    else:
+                        y = model(x.transpose(1, 2), f).transpose(1, 2)
+                with span("infer.d2h"):
+                    y = y.float().cpu().numpy()
+                outputs.append(y)
+                total_steps += 1
+                if test_Y is not None:
+                    error += float(np.mean(np.abs(y - test_Y[start:end]))) * batch_size
+        output = np.concatenate(outputs, axis=0)
+        mean_err = error / max(total_steps * batch_size, 1) if test_Y is not None else None
+        return output, mean_err
 
 
 # save_results derives root/bone_len from the FULL train xyz pickle on every

@@ -58,6 +58,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel impor
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
     resolve_device,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.profiling import (
+    count,
+    span,
+)
 
 _PRUNE_WATCH = (0, 1, 2, 3, 4, 5, 6, 7)
 _PRUNE_THRESHOLD = 0.3
@@ -101,7 +105,8 @@ def _interleave(Yx, Yy, Yz):
 
 def _lift_batch(kps, masks, noises, n_cycles: int, filter_impl: str = "pallas",
                 matpow_precision: str = "float32"):
-    x0, y0, z0, Xx, Xy, Xw = _init_core(kps, masks, noises)
+    with span("lift.init"):
+        x0, y0, z0, Xx, Xy, Xw = _init_core(kps, masks, noises)
     args = (x0, y0, z0, Xx, Xy, Xw, masks)
     if filter_impl == "pallas":
         Yx, Yy, Yz = filter_sgd(*args, _LR, n_cycles)
@@ -195,7 +200,11 @@ def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
     or 'matpow') picks the filter and ``matpow_precision`` ('float32',
     'tensorfloat32' or 'bfloat16') matpow's products.  ``mesh``: each rank
     lifts its rows of every batch (module docstring); every rank returns
-    all clips.
+    all clips.  With the tracer on (``utils/profiling``): spans
+    ``lift.pack`` (the plan, then each batch's packing and copies in),
+    ``lift.init`` (each batch's ``_init_core``) and ``lift.drain`` (each
+    batch's copy out and unpacking); counters ``lift.live_frames`` (the clips'
+    frames) and ``lift.padded_frames`` (rows x T-bucket of every batch).
     """
     dev = resolve_device(device)
     n_data = 1
@@ -212,17 +221,23 @@ def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
     pending: list = []
 
     def drain(entry):
-        chunk, res_dev = entry
-        res = res_dev.cpu().numpy()
-        for slot, (i, c) in enumerate(chunk):
-            out[i] = res[slot, : c.shape[0]]
+        with span("lift.drain"):
+            chunk, res_dev = entry
+            res = res_dev.cpu().numpy()
+            for slot, (i, c) in enumerate(chunk):
+                out[i] = res[slot, : c.shape[0]]
 
-    for tb, chunk in _plan(clips, t_bucket, max_batch):
-        batch = _pack(chunk, tb, n_data)
-        if mesh is None:
-            batch = [torch.from_numpy(a).to(dev) for a in batch]
-        else:
-            batch = mesh_lib.local_rows(batch, mesh)[0]
+    with span("lift.pack"):
+        plan = _plan(clips, t_bucket, max_batch)
+    for tb, chunk in plan:
+        with span("lift.pack"):
+            batch = _pack(chunk, tb, n_data)
+            count("lift.live_frames", sum(c.shape[0] for _, c in chunk))
+            count("lift.padded_frames", batch[1].size)
+            if mesh is None:
+                batch = [torch.from_numpy(a).to(dev) for a in batch]
+            else:
+                batch = mesh_lib.local_rows(batch, mesh)[0]
         res = _lift_batch(*batch, n_cycles, filter_impl, matpow_precision)
         if mesh is not None:
             res = mesh_lib.gather_rows(res, mesh.data_group, n_data)

@@ -37,7 +37,11 @@ on these ill-conditioned steps that leaves some gradients up to 11491
 times as far from a float64 step as the CPU's, and a G step takes up to
 4.8 times as long (PERF.md, ``chip_step_precision.py``).  With
 ``loss="RobustLoss"`` the regression loss of every G and val step on a CUDA
-device runs through the hand-written ``ops/robust_loss`` kernel.
+device runs through the hand-written ``ops/robust_loss`` kernel.  With
+the tracer on (``utils/profiling``) each step is the span ``train.g_step``,
+``train.d_step`` or ``train.val_step``, and within it ``train.forward``,
+``train.backward`` and ``train.optim`` (twice in a G or D step: the
+``zero_grad`` before the backward, the reduce and the optimizer's step after).
 
 With a ``mesh`` (``parallel/mesh.get_mesh``) the steps are the JAX
 trainer's data-parallel ones, written out over ``torch.distributed``: the
@@ -91,6 +95,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train.staging 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
     resolve_device,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.profiling import span
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.viz import track_grads
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -139,8 +144,8 @@ class GanConfig:
     compute_dtype: str = "float32"
 
 
-def _float32_step(fn):
-    """Run a step with TF32 off for convs and matmuls and cuDNN off, then
+def _float32(fn):
+    """Run ``fn`` with TF32 off for convs and matmuls and cuDNN off, then
     restore both.  At a bfloat16 compute dtype oneDNN is off too, so the
     CPU's convolutions are PyTorch's own as well: oneDNN's bfloat16
     convolution backward returns NaN weight gradients now and then
@@ -157,6 +162,18 @@ def _float32_step(fn):
                 return fn(self, *args, **kwargs)
         finally:
             torch.backends.cudnn.enabled, torch.backends.mkldnn.enabled = was
+    return wrapped
+
+
+def _float32_step(fn):
+    """A step under ``_float32``, timed as the span ``train.<its name>``."""
+    name = f"train.{fn.__name__}"
+    step = _float32(fn)
+
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        with span(name):
+            return step(self, *args, **kwargs)
     return wrapped
 
 
@@ -328,12 +345,16 @@ class GanTrainer:
     @_float32_step
     def g_step(self, x, y, feats=None):
         """One generator update; returns the loss (a 0-d device tensor)."""
-        x, y, feats = self._local(x, y, feats)
-        g_loss = self._g_loss(x, y, feats)
-        self.g_opt.zero_grad(set_to_none=True)
-        g_loss.backward(inputs=self._g_params)
-        g_loss = self._reduce(self._g_params, g_loss.detach())
-        self.g_opt.step()
+        with span("train.forward"):
+            x, y, feats = self._local(x, y, feats)
+            g_loss = self._g_loss(x, y, feats)
+        with span("train.optim"):
+            self.g_opt.zero_grad(set_to_none=True)
+        with span("train.backward"):
+            g_loss.backward(inputs=self._g_params)
+        with span("train.optim"):
+            g_loss = self._reduce(self._g_params, g_loss.detach())
+            self.g_opt.step()
         return g_loss
 
     @_float32_step
@@ -342,25 +363,30 @@ class GanTrainer:
         under no_grad; D takes two train-mode forwards, fake then real, so
         its running statistics update twice in that order (with
         ``fused_d``, one forward over both and the same statistics)."""
-        x, y, feats = self._local(x, y, feats)
-        self.generator.eval()
-        self.discriminator.train()
-        with torch.no_grad(), self._at_compute_dtype(self.generator) as (gen, _, _):
-            fake = gen(self._cast(x.transpose(1, 2)), self._cast(feats))
-        fake_motion = calc_motion(fake)
-        real_motion = self._cast(calc_motion(y.transpose(1, 2)))
-        t_fake, t_real = (0.1, 0.9) if self.cfg.disc_label_smooth else (0.0, 1.0)
-        with self._at_compute_dtype(self.discriminator) as (disc, params, bufs):
-            if self.cfg.fused_d:
-                fake_score, real_score = self._d_scores_fused(params, bufs, fake_motion,
-                                                              real_motion)
-            else:
-                fake_score, real_score = disc(fake_motion), disc(real_motion)
-        d_loss = mse(self._uncast(fake_score), t_fake) + mse(self._uncast(real_score), t_real)
-        self.d_opt.zero_grad(set_to_none=True)
-        d_loss.backward()
-        d_loss = self._reduce(list(self.discriminator.parameters()), d_loss.detach())
-        self.d_opt.step()
+        with span("train.forward"):
+            x, y, feats = self._local(x, y, feats)
+            self.generator.eval()
+            self.discriminator.train()
+            with torch.no_grad(), self._at_compute_dtype(self.generator) as (gen, _, _):
+                fake = gen(self._cast(x.transpose(1, 2)), self._cast(feats))
+            fake_motion = calc_motion(fake)
+            real_motion = self._cast(calc_motion(y.transpose(1, 2)))
+            t_fake, t_real = (0.1, 0.9) if self.cfg.disc_label_smooth else (0.0, 1.0)
+            with self._at_compute_dtype(self.discriminator) as (disc, params, bufs):
+                if self.cfg.fused_d:
+                    fake_score, real_score = self._d_scores_fused(params, bufs, fake_motion,
+                                                                  real_motion)
+                else:
+                    fake_score, real_score = disc(fake_motion), disc(real_motion)
+            d_loss = (mse(self._uncast(fake_score), t_fake)
+                      + mse(self._uncast(real_score), t_real))
+        with span("train.optim"):
+            self.d_opt.zero_grad(set_to_none=True)
+        with span("train.backward"):
+            d_loss.backward()
+        with span("train.optim"):
+            d_loss = self._reduce(list(self.discriminator.parameters()), d_loss.detach())
+            self.d_opt.step()
         return d_loss
 
     def _d_scores_fused(self, params, bufs, fake_motion, real_motion):
@@ -400,13 +426,14 @@ class GanTrainer:
 
     @_float32_step
     def val_step(self, x, y, feats=None):
-        x, y, feats = self._local(x, y, feats)
-        self.generator.eval()
-        with torch.no_grad(), self._at_compute_dtype(self.generator) as (gen, _, _):
-            y_hat = self._uncast(gen(self._cast(x.transpose(1, 2)), self._cast(feats)))
-            return self._reduce((), self._reg(y_hat, y))
+        with span("train.forward"):
+            x, y, feats = self._local(x, y, feats)
+            self.generator.eval()
+            with torch.no_grad(), self._at_compute_dtype(self.generator) as (gen, _, _):
+                y_hat = self._uncast(gen(self._cast(x.transpose(1, 2)), self._cast(feats)))
+                return self._reduce((), self._reg(y_hat, y))
 
-    @_float32_step
+    @_float32
     def grad_flow(self, x, y, feats=None) -> dict:
         """Per-parameter mean and max |g| of the G training loss's gradients
         on one batch, keyed by the generator's parameter names, without a

@@ -5,9 +5,9 @@
   ``state_dict``, its gradients and an optimizer's state by the same rule;
   ``assert_finite`` takes tensors and raises the JAX function's message;
   ``enable_debug_nans`` switches PyTorch's anomaly mode.
-* ``utils/profiling``: ``StepTimer`` equals the JAX one under the same
-  patched clock; ``trace`` writes a Chrome trace holding an ``annotate``
-  region, ``trace(None)`` writes nothing.
+* ``utils/profiling``: ``trace`` writes a Chrome trace holding a ``span``
+  region, ``trace(None)`` writes nothing (the tracer itself:
+  ``tests/test_torch_profiling.py``).
 * ``utils/platform``: ``host_fingerprint`` equals the JAX one on this host;
   ``toolchain_fingerprint`` holds ``nvcc --version`` and the host
   compiler's version line; ``ops/build.library``'s digest changes with the
@@ -17,7 +17,6 @@
 import json
 import os
 import sys
-import time
 from collections import OrderedDict
 
 import numpy as np
@@ -27,7 +26,6 @@ import torch
 from multimodal_hand_pose_enhancement_for_sign_language_tpu.utils import (
     nan_guard as j_nan,
     platform as j_platform,
-    profiling as j_prof,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import build
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils import (
@@ -115,24 +113,10 @@ def test_enable_debug_nans_switches_anomaly_mode():
         torch.autograd.set_detect_anomaly(before)
 
 
-@pytest.mark.parametrize("warmup,ticks", [(1, [0.0, 0.5, 0.75, 1.5, 1.625]), (0, [2.0, 3.0]),
-                                          (3, [0.0, 1.0])])
-def test_step_timer_matches_jax(monkeypatch, warmup, ticks):
-    out = []
-    for module in (j_prof, profiling):
-        clock = iter(ticks)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        timer = module.StepTimer(warmup=warmup)
-        for _ in ticks:
-            timer.tick()
-        out.append((timer.summary(), timer.mean))
-    assert out[0] == out[1]
-
-
 def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
     log_dir = tmp_path / "trace"
     with profiling.trace(str(log_dir)) as prof:
-        with profiling.annotate("port_region"):
+        with profiling.span("port_region"):
             torch.ones(8).mul(2).sum()
     assert prof is not None
     (path,) = log_dir.iterdir()
@@ -143,7 +127,7 @@ def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
 def test_trace_none_writes_nothing(tmp_path):
     before = set(os.listdir(tmp_path))
     with profiling.trace(None) as prof:
-        with profiling.annotate("unused"):
+        with profiling.span("unused"):
             torch.ones(2).sum()
     assert prof is None
     assert set(os.listdir(tmp_path)) == before

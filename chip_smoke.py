@@ -828,8 +828,8 @@ TRAIN_BATCH = 128
 TRAIN_EPOCHS = 4  # epochs 0-2 train G and validate, epoch 3 trains D
 N_VAL_CLIPS = 256
 # One step on the card against the same step on the CPU, dropout 0: the
-# trainer's own step, which runs PyTorch's own CUDA convolutions (cuDNN
-# off, train/gan.py).  The loss is held relative, the running statistics
+# trainer's own step, which runs with cuDNN off, each convolution one
+# whole-batch float32 product (ops/conv.py, train/gan.py).  The loss is held relative, the running statistics
 # absolute (the CPU tests' 5e-6, tests/test_torch_gan.py).  The generator's
 # gradients are ill-conditioned at float32 (train-mode BatchNorm backward
 # over channels of tiny variance): on these clips the CPU's float32

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Where a float32 training step on the card loses accuracy.
 
-    python3 chip_step_precision.py [--parts d_split,grads,...] [--ways native,gemm]
+    python3 chip_step_precision.py [--parts d_split,grads,...] [--ways native,per_sample]
                                    [--out build/step_precision.jsonl]
 
 On the batches ``chip_smoke.py`` holds its step checks on (its lifted
 synthetic clips, its seeded text and image features), for v1, v4+text,
 v4_deeper+text and b2h+image with dropout 0, against a float64
 evaluation of the same weights and batch on the CPU, under these ways of
-computing: the CPU at float32 (``cpu32``), the card with PyTorch's own CUDA
-convolutions (``native``: cuDNN off, what the trainer runs), cuDNN with
-its default choice of algorithms (``cudnn``), cuDNN held to
-deterministic ones (``cudnn_det``), cuDNN timing its algorithms and
-keeping the fastest (``cudnn_bench``), and each convolution as one
-matrix product over unfolded windows (``gemm``); TF32 off throughout.
+computing: the CPU at float32 (``cpu32``), the card with cuDNN off, what
+the trainer runs (``native``: each convolution one whole-batch matrix
+product, ``ops/conv``), cuDNN with its default choice of algorithms
+(``cudnn``), cuDNN held to deterministic ones (``cudnn_det``), cuDNN
+timing its algorithms and keeping the fastest (``cudnn_bench``), and
+PyTorch's own CUDA convolutions, im2col and a product one sample at a
+time (``per_sample``: cuDNN off, the form's predicate off); TF32 off
+throughout.
 Prints, per model:
 
   * each layer's output of the generator's forward (eval and train mode),
@@ -43,19 +45,19 @@ import tempfile
 import numpy as np
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 import chip_smoke as cs
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import io
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.infer import (
     conv_matmul_precision,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import conv
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
     data as data_lib,
     gan,
 )
 
-WAYS = ("cpu32", "native", "cudnn", "cudnn_det", "cudnn_bench", "gemm")
+WAYS = ("cpu32", "native", "cudnn", "cudnn_det", "cudnn_bench", "per_sample")
 MODELS = (("v1", None), ("v4", "text"), ("v4_deeper", "text"), ("b2h", "image"))
 LAYER_TYPES = (nn.Conv1d, nn.ConvTranspose1d, nn.Linear, nn.BatchNorm1d)
 OUT = None
@@ -76,47 +78,22 @@ def way_device(way):
 @contextlib.contextmanager
 def computing(way):
     """TF32 off; cuDNN off, on, deterministic or benchmarking its
-    algorithms (``torch.backends.cudnn.benchmark``) as ``way`` says."""
-    flags = {"native": dict(enabled=False), "gemm": dict(enabled=False),
+    algorithms (``torch.backends.cudnn.benchmark``) as ``way`` says; for
+    ``per_sample`` the whole-batch form's predicate off too."""
+    flags = {"native": dict(enabled=False), "per_sample": dict(enabled=False),
              "cudnn_det": dict(enabled=True, deterministic=True),
              "cudnn_bench": dict(enabled=True, benchmark=True)}.get(
                  way, dict(enabled=True))
-    with conv_matmul_precision("float32"), torch.backends.cudnn.flags(
-            **{"benchmark": False, "deterministic": False, "allow_tf32": False,
-               **flags}):
-        yield
-
-
-def conv1d_gemm(x, weight, bias, stride, padding):
-    """Conv1d as one matrix product over unfolded windows."""
-    O, C, k = weight.shape
-    B = x.shape[0]
-    cols = F.pad(x, (padding, padding)).unfold(2, k, stride)  # (B, C, T', k)
-    T2 = cols.shape[2]
-    cols = cols.permute(0, 2, 1, 3).reshape(B * T2, C * k)
-    out = torch.addmm(bias, cols, weight.reshape(O, C * k).t())
-    return out.reshape(B, T2, O).transpose(1, 2)
-
-
-def conv_transpose1d_gemm(x, weight, bias, stride, padding, output_padding):
-    """ConvTranspose1d as conv1d_gemm over the zero-interleaved input."""
-    B, C, T = x.shape
-    up = x.new_zeros(B, C, (T - 1) * stride + 1)
-    up[:, :, ::stride] = x
-    lo = weight.shape[2] - 1 - padding
-    up = F.pad(up, (lo, lo + output_padding))
-    return conv1d_gemm(up, weight.flip(-1).transpose(0, 1), bias, 1, 0)
-
-
-def use_gemm_convs(*modules):
-    for module in modules:
-        for m in module.modules():
-            if isinstance(m, nn.ConvTranspose1d):
-                m.forward = lambda x, m=m: conv_transpose1d_gemm(
-                    x, m.weight, m.bias, m.stride[0], m.padding[0], m.output_padding[0])
-            elif isinstance(m, nn.Conv1d):
-                m.forward = lambda x, m=m: conv1d_gemm(
-                    x, m.weight, m.bias, m.stride[0], m.padding[0])
+    batched = conv.batched
+    if way == "per_sample":
+        conv.batched = lambda x: False
+    try:
+        with conv_matmul_precision("float32"), torch.backends.cudnn.flags(
+                **{"benchmark": False, "deterministic": False, "allow_tf32": False,
+                   **flags}):
+            yield
+    finally:
+        conv.batched = batched
 
 
 def trainer(model, cond, way):
@@ -126,8 +103,6 @@ def trainer(model, cond, way):
     if way == "cpu64":
         for m in (tr.generator, tr.discriminator, tr.adaptive):
             m.double()
-    if way == "gemm":
-        use_gemm_convs(tr.generator, tr.discriminator)
     return tr
 
 
@@ -232,7 +207,7 @@ def d_split_rows(model, cond, batch):
     scale = float(fake_ref.abs().max())
     for g_way, d_way in (("native", "native"), ("native", "cudnn_det"),
                          ("cudnn_det", "native"), ("cudnn_det", "cudnn_det"),
-                         ("cudnn_bench", "cudnn_bench"), ("gemm", "gemm")):
+                         ("cudnn_bench", "cudnn_bench"), ("per_sample", "per_sample")):
         if g_way not in WAYS or d_way not in WAYS:
             continue
         fake, got = d_split_grads(model, cond, batch, g_way, d_way)

@@ -28,7 +28,9 @@ import torch
 from torch import nn
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.layers import (
+    Conv1d,
     ConvBlock,
+    ConvTranspose1d,
     Dropout,
     FeatEmbedBlock,
     max_pool_time,
@@ -49,12 +51,12 @@ class Decoder(nn.Sequential):
         super().__init__(
             *ConvBlock(in_ch, in_ch, 3, 1, 1, dropout=dropout),
             Dropout(dropout),
-            nn.ConvTranspose1d(in_ch, out_dim, 7, stride=2, padding=3,
-                               output_padding=1),
+            ConvTranspose1d(in_ch, out_dim, 7, stride=2, padding=3,
+                            output_padding=1),
             nn.ReLU(),
             nn.BatchNorm1d(out_dim, momentum=0.1, eps=1e-5),
             Dropout(dropout),
-            nn.Conv1d(out_dim, out_dim, 7, 1, 3),
+            Conv1d(out_dim, out_dim, 7, 1, 3),
         )
 
 
@@ -298,7 +300,7 @@ class regressor_fcn_bn_discriminator(nn.Module):
         for ch in (64, 64, 32, 32, 16, 16, 8):
             layers += list(ConvBlock(in_ch, ch, 5, 2, 2, dropout=dropout_rate))
             in_ch = ch
-        layers += [Dropout(dropout_rate), nn.Conv1d(in_ch, 1, 3, 1, 1)]
+        layers += [Dropout(dropout_rate), Conv1d(in_ch, 1, 3, 1, 1)]
         self.convs = nn.Sequential(*layers)
 
     def forward(self, x):

@@ -23,6 +23,8 @@ import math
 import torch
 from torch import nn
 
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import conv
+
 
 class Dropout(nn.Dropout):
     """``nn.Dropout`` whose mask is drawn from ``self.generator`` (set with
@@ -49,6 +51,24 @@ class Dropout(nn.Dropout):
         return x * mask / keep if keep > 0 else torch.zeros_like(x)
 
 
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` (stride and padding, no dilation or groups) through
+    ``ops.conv.conv1d``: the whole-batch GEMM form on a CUDA tensor with
+    cuDNN off, else ``F.conv1d``.  Parameters and keys are ``nn.Conv1d``'s."""
+
+    def forward(self, x):
+        return conv.conv1d(x, self.weight, self.bias, self.stride[0], self.padding[0])
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """``nn.ConvTranspose1d`` (stride, padding and output padding) through
+    ``ops.conv.conv_transpose1d``, as ``Conv1d``."""
+
+    def forward(self, x):
+        return conv.conv_transpose1d(x, self.weight, self.bias, self.stride[0],
+                                     self.padding[0], self.output_padding[0])
+
+
 def set_dropout_generator(module: nn.Module, generator) -> None:
     """Make every ``Dropout`` under ``module`` draw from ``generator``."""
     for m in module.modules():
@@ -71,7 +91,7 @@ class ConvBlock(nn.Sequential):
                  pool=False, dropout=0.5):
         layers = [
             Dropout(dropout),
-            nn.Conv1d(in_ch, out_ch, kernel_size, stride, padding),
+            Conv1d(in_ch, out_ch, kernel_size, stride, padding),
             nn.LeakyReLU(0.2),
             nn.BatchNorm1d(out_ch, momentum=0.1, eps=1e-5),
         ]

@@ -34,8 +34,10 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch import nn
+
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import layers
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import conv
 
 class Mesh:
     """A (data, model) grid over the ranks of the default process group.
@@ -246,27 +248,26 @@ def _tp_conv(self, x, conv):
     return y + self.bias.view(1, -1, *([1] * (y.dim() - 2)))
 
 
-class TPConv1d(nn.Conv1d):
-    """``nn.Conv1d`` holding this rank's output channels (weight dim 0)."""
+class TPConv1d(layers.Conv1d):
+    """``layers.Conv1d`` holding this rank's output channels (weight dim 0)."""
     tp_dim = 0
 
     def forward(self, x):
-        return _tp_conv(self, x, lambda x, w: F.conv1d(
-            x, w, None, self.stride, self.padding, self.dilation, self.groups))
+        return _tp_conv(self, x, lambda x, w: conv.conv1d(
+            x, w, None, self.stride[0], self.padding[0]))
 
 
-class TPConvTranspose1d(nn.ConvTranspose1d):
-    """``nn.ConvTranspose1d`` holding this rank's output channels (weight
-    dim 1)."""
+class TPConvTranspose1d(layers.ConvTranspose1d):
+    """``layers.ConvTranspose1d`` holding this rank's output channels
+    (weight dim 1)."""
     tp_dim = 1
 
     def forward(self, x):
-        return _tp_conv(self, x, lambda x, w: F.conv_transpose1d(
-            x, w, None, self.stride, self.padding, self.output_padding, self.groups,
-            self.dilation))
+        return _tp_conv(self, x, lambda x, w: conv.conv_transpose1d(
+            x, w, None, self.stride[0], self.padding[0], self.output_padding[0]))
 
 
-_TP_CLASSES = {nn.Conv1d: TPConv1d, nn.ConvTranspose1d: TPConvTranspose1d}
+_TP_CLASSES = {layers.Conv1d: TPConv1d, layers.ConvTranspose1d: TPConvTranspose1d}
 
 
 def local_split(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:

@@ -29,13 +29,14 @@ state float32, the losses reduced in float32 on a float32 prediction.
 ``fused_d`` runs the D step's fake and real passes as one forward
 (``_d_scores_fused``).  ``grad_flow`` reports the G loss's gradients
 without a step.  Each step runs with TF32 off and cuDNN off, both restored
-afterwards: the convolutions are PyTorch's own
-CUDA ones.  On an H100 cuDNN runs the 512-channel convolutions as FFTs,
+afterwards.  On an H100 cuDNN runs the 512-channel convolutions as FFTs,
 each such layer's output 2.4-6.1 times as far from float64 as PyTorch's
 own;
 on these ill-conditioned steps that leaves some gradients up to 11491
 times as far from a float64 step as the CPU's, and a G step takes up to
-4.8 times as long (PERF.md, ``chip_step_precision.py``).  With
+4.8 times as long (PERF.md, ``chip_step_precision.py``).  With cuDNN off a
+CUDA step's convolutions are ``ops/conv``'s whole-batch float32 GEMMs, not
+PyTorch's own per-sample ones; on the CPU they are PyTorch's own.  With
 ``loss="RobustLoss"`` the regression loss of every G and val step on a CUDA
 device runs through the hand-written ``ops/robust_loss`` kernel.  With
 the tracer on (``utils/profiling``) each step is the span ``train.g_step``,
@@ -66,7 +67,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import losses as losses_lib
@@ -81,6 +81,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.layers 
     set_dropout_generator,
     set_dropout_rows,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import conv
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops.robust_loss import (
     robust_lossfun,
 )
@@ -403,8 +404,8 @@ class GanTrainer:
         h = torch.cat((fake_motion, real_motion))  # (2B, C, T)
         for i, layer in enumerate(self.discriminator.convs):
             if isinstance(layer, nn.Conv1d):
-                h = F.conv1d(h, params[f"convs.{i}.weight"], params[f"convs.{i}.bias"],
-                             layer.stride, layer.padding)
+                h = conv.conv1d(h, params[f"convs.{i}.weight"], params[f"convs.{i}.bias"],
+                                layer.stride[0], layer.padding[0])
             elif isinstance(layer, nn.BatchNorm1d):
                 _, C, T = h.shape
                 s0 = (bufs[f"convs.{i}.running_mean"], bufs[f"convs.{i}.running_var"])

@@ -623,3 +623,144 @@ def test_sharded_lifting_launches_the_kernel(nccl_mesh):
     assert fs.filter_sgd.launches - before == len(engine._plan(clips))
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+
+
+# the whole-batch convolution form (``ops/conv``): v2's and v1's widest
+# layers and the decoder's transposed convolution at B=16, T=96; the form's
+# float32 output and gradients within CONV_REL of the largest float64 value
+# (PyTorch's own per-sample form reads 1.6e-7-7.6e-7, the form 1.5e-7-1.8e-6
+# at B=128 on an H100 80GB HBM3, 700 W)
+CONV_REL = 1e-5
+CONV_CASES = [("c", 512, 512, 3, 1, 1, 0), ("c", 512, 512, 5, 2, 2, 0),
+              ("c", 252, 252, 7, 1, 3, 0), ("t", 512, 252, 7, 2, 3, 1),
+              ("c", 252, 64, 5, 2, 2, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", CONV_CASES, ids=["-".join(map(str, c)) for c in CONV_CASES])
+def test_conv_form_on_the_card_is_float32(cuda, layer):
+    import torch.nn.functional as F
+
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import conv
+
+    kind, cin, cout, k, s, p, op = layer
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(16, cin, 96, generator=g, dtype=torch.float64)
+    w = torch.randn((cout, cin, k) if kind == "c" else (cin, cout, k), generator=g,
+                    dtype=torch.float64) / (cin * k) ** 0.5
+    b = torch.randn(cout, generator=g, dtype=torch.float64)
+
+    def run(dev, dtype):
+        xx, ww, bb = (t.to(dev, dtype).requires_grad_() for t in (x, w, b))
+        if kind == "c":
+            y = F.conv1d(xx, ww, bb, s, p) if dev == "cpu" else conv.conv1d(xx, ww, bb, s, p)
+        else:
+            y = (F.conv_transpose1d(xx, ww, bb, s, p, op) if dev == "cpu"
+                 else conv.conv_transpose1d(xx, ww, bb, s, p, op))
+        gy = torch.cos(torch.arange(y.numel(), dtype=dtype, device=dev)).view_as(y)
+        return [t.detach().cpu().double() for t in
+                [y, *torch.autograd.grad(y, (xx, ww, bb), gy)]]
+
+    want = run("cpu", torch.float64)
+    was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        with conv_matmul_precision("float32"):
+            assert conv.batched(x.to(cuda))
+            got = run(cuda, torch.float32)
+    finally:
+        torch.backends.cudnn.enabled = was
+    for a, r in zip(got, want):
+        assert float((a - r).abs().max()) <= CONV_REL * float(r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", CONV_CASES, ids=["-".join(map(str, c)) for c in CONV_CASES])
+def test_conv_form_at_bfloat16_on_the_card(cuda, layer):
+    """At bfloat16 (``compute_dtype="bfloat16"``) against the float64
+    convolution of the same bfloat16 operands, with u = 2^-8 and ``R`` the
+    convolution of their absolute values (tests/test_torch_conv_batched.py's
+    CPU case).  The H100's bfloat16 tensor-core products sum with less than
+    float32's precision: up to 4.8e-4 R beyond the output's one rounding at
+    K = 1,536-2,560, in the form and in PyTorch's own per-sample convolution
+    alike (H100 80GB HBM3, 700 W).  So the output and the weight gradient
+    within u |ref| + 2^-10 R, the bias gradient u |ref| + 2^-14 R (+ u R for
+    a transposed one's phases, summed in bfloat16), the input gradient
+    u |ref| + k u R (the overlap-add in bfloat16); and the output's excess
+    over u |ref| no more than PyTorch's own per-sample convolution's on the
+    card (cuDNN off), which the GAN steps ran before the form, + 2^-14 R."""
+    import torch.nn.functional as F
+
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import conv
+
+    kind, cin, cout, k, s, p, op = layer
+    if kind == "c":
+        form, plain = (lambda *a: conv.conv1d(*a, s, p)), (lambda *a: F.conv1d(*a, s, p))
+    else:
+        form = lambda *a: conv.conv_transpose1d(*a, s, p, op)  # noqa: E731
+        plain = lambda *a: F.conv_transpose1d(*a, s, p, op)  # noqa: E731
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(16, cin, 96, generator=g).bfloat16()
+    w = torch.randn((cout, cin, k) if kind == "c" else (cin, cout, k), generator=g).bfloat16()
+    b = torch.randn(cout, generator=g).bfloat16()
+    gy = torch.randn(plain(x.float(), w.float(), b.float()).shape, generator=g).bfloat16()
+
+    def run(fn, dev, dtype, sign=lambda t: t):
+        leaves = [sign(t.to(dev, dtype)).requires_grad_() for t in (x, w, b)]
+        y = fn(*leaves)
+        grads = torch.autograd.grad(y, leaves, sign(gy.to(dev, dtype)))
+        return [t.detach().cpu().double() for t in (y, *grads)]
+
+    was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        with conv_matmul_precision("float32"):
+            assert conv.batched(x.to(cuda))
+            got = run(form, cuda, torch.bfloat16)
+            per_sample = run(plain, cuda, torch.bfloat16)
+    finally:
+        torch.backends.cudnn.enabled = was
+    want = run(plain, "cpu", torch.float64)
+    bound = run(plain, "cpu", torch.float64, torch.abs)
+    u = 2.0**-8
+    extra = [2.0**-10, k * u, 2.0**-10, 2.0**-14 + (u if kind == "t" else 0.0)]
+    for what, a, c, r, e in zip("yxwb", got, want, bound, extra):
+        assert bool(((a - c).abs() <= u * c.abs() + e * r).all()), what
+
+    def excess(a):
+        return float((((a - want[0]).abs() - u * want[0].abs()) / bound[0]).max())
+
+    assert excess(got[0]) <= excess(per_sample[0]) + 2.0**-14
+
+
+@pytest.mark.cuda
+def test_gan_steps_take_the_form_and_inference_does_not(cuda):
+    """Every convolution of a card step is the whole-batch form (17 in a
+    G step of v1: G's 9 and D's 8), with no per-sample convolution op in
+    the profile; ``run_inference`` (cuDNN on) takes none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.infer import (
+        run_inference,
+    )
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import gan
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils import profiling
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(8, 64, 12).astype(np.float32)
+    y = rng.randn(8, 64, 24).astype(np.float32)
+    tr = gan.GanTrainer(gan.GanConfig(feature_in_dim=12, feature_out_dim=24,
+                                      default_size=32, window_t=64), device="cuda")
+    profiling.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tr.g_step(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+            torch.cuda.synchronize()
+        assert profiling.snapshot()["counts"]["train.conv_batched"] == 17
+        names = {e.key for e in prof.key_averages()}
+        assert not any("slow_conv" in n or "im2col" in n for n in names), names
+        profiling.enable()
+        run_inference(tr.generator, x, batch_size=8, device="cuda")
+        assert "train.conv_batched" not in profiling.snapshot()["counts"]
+    finally:
+        profiling.disable()

@@ -17,7 +17,9 @@ Tolerances:
     loss 1e-5 relative, running statistics 5e-6, parameters 5e-6 outside
     the sign-noise mask of tests/test_torch_gan.py (0 < |g| < 1e-6, such an
     entry within 2 lr + 5e-6, at most 1e-3 of the entries); JAX's TP step
-    1e-3 on the loss (tests/test_multichip.py:210),
+    1e-3 on the loss (tests/test_multichip.py:210); the 4-rank TP steps
+    again with ``ops/conv``'s whole-batch form forced, against the port's
+    single-device step at the same tolerances,
   * dropout 0.5, against the port's single-device step: loss 1e-4
     (tests/test_multichip.py:42); a 2-rank epoch: 1e-3 (:58),
   * a batch of 5 rows on 2 ranks (replicated): running statistics equal to
@@ -63,6 +65,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models import 
     registry as t_registry,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch import infer as t_infer
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import conv
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
     mesh as mesh_lib,
     multihost,
@@ -73,6 +76,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train import (
     classifier as t_cls,
     gan as t_gan,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = "multimodal_hand_pose_enhancement_for_sign_language_tpu_torch"
@@ -266,6 +270,18 @@ def _job4(inputs, out_dir):
                                       multihost.global_batch_array(y[rows], mesh)))
     res["gba_g_sd"] = tr.checkpoint_payload(0)["state_dict"]
     res["gba_g_grads"] = _grads(tr, tr.generator)
+
+    # the TP steps with every convolution in the whole-batch form (ops/conv,
+    # which a CUDA step with cuDNN off takes), the predicate forced
+    was = conv.batched
+    conv.batched = lambda x: True
+    profiling.enable()
+    try:
+        res["forced"] = _steps(inputs["state"], mesh, tp=True)
+    finally:
+        conv.batched = was
+        profiling.disable()
+    res["forced_convs"] = profiling.snapshot()["counts"].get("train.conv_batched", 0)
     res["filter64"] = [a.numpy() for a in sequence.filter_xyz_time_sharded(
         *_filter_inputs(64, 1), mesh, n_cycles=50)]
     res["filter1920"] = [a.numpy() for a in sequence.filter_xyz_time_sharded(
@@ -517,6 +533,19 @@ def test_tp_steps_match_single_device_and_jax(ranks):
     got = ranks["four"][0]["steps"]
     _hold_steps(got, ranks["ref"]["port"])
     assert abs(got["g_loss"] - ranks["ref"]["jax_tp_loss"]) < TP_JAX_ATOL
+
+
+def test_tp_steps_in_the_whole_batch_form_match_single_device(ranks):
+    """data 2 x model 2 with ``ops/conv``'s form forced in every ``TPConv1d``
+    / ``TPConvTranspose1d`` and the discriminator's convolutions: the G, D
+    and val steps against the port's single device with ``F.conv1d``, at
+    the step tolerances.  Float32, as on the card: the mesh's BatchNorm
+    (``parallel/batchnorm``) computes in float32 whatever its input, so a
+    float64 step through the mesh is float32 there.  Every convolution of
+    the three steps took the form: v1's G has 9 and D 8, so 17 + 25 + 9."""
+    for res in ranks["four"]:
+        _hold_steps(res["forced"], ranks["ref"]["port"])
+        assert res["forced_convs"] == 51
 
 
 def test_tp_weights_stay_split_and_the_gathered_state_loads(ranks):

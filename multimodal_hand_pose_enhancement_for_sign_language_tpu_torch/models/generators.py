@@ -36,6 +36,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.layers 
     max_pool_time,
     upsample_repeat,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.profiling import (
+    count,
+    span,
+)
 
 TEXT_EMBED_DIM = 512  # CLIP text embedding size (modelZoo.py:184)
 IMAGE_FEAT_DIM = 2000  # ResNet-50 features, 1000 per hand (modelZoo.py:21)
@@ -233,7 +237,9 @@ class regressor_fcn_bn_32_v4_deeper(nn.Module):
     they run all the same, in the reference's order, so their BatchNorm
     statistics move as the reference's and the JAX package's do (their
     gradients stay None); in eval mode they would move nothing and are
-    skipped."""
+    skipped.  The tracer times the branch as the span ``train.dead_branch``
+    and counts the input windows' B x T frames of each train-mode forward
+    as ``train.dead_branch_frames``."""
 
     def __init__(self, feature_in_dim, feature_out_dim, require_text=False,
                  default_size=256, dropout_rate=0.5):
@@ -276,7 +282,9 @@ class regressor_fcn_bn_32_v4_deeper(nn.Module):
         sixth = self.conv6(fifth)
         seventh = self.conv7(sixth)
         if self.training:
-            self._dead_branch(seventh, feats)
+            with span("train.dead_branch"):
+                self._dead_branch(seventh, feats)
+            count("train.dead_branch_frames", x.shape[0] * x.shape[2])
 
         sixth = upsample_repeat(seventh, sixth.shape[2]) + sixth
         sixth = self.skip3(sixth)

@@ -13,7 +13,8 @@ timeline and clock beside the device's records.  The stack is the process's:
 spans are opened on one thread.
 
 Names are ``<layer>.<part>``: ``lift.*`` in ``lifting/engine.lift_clips``,
-``train.*`` in ``train/gan.GanTrainer``'s steps, ``infer.*`` in
+``train.*`` in ``train/gan.GanTrainer``'s steps (``train.dead_branch`` in
+v4_deeper's train-mode forward, ``models/generators``), ``infer.*`` in
 ``infer.run_inference``.
 """
 

@@ -213,6 +213,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
     build,
     filter_sgd as fs,
     kinematics,
+    lift_init as li,
     robust_loss as rl,
     rotations,
 )
@@ -351,22 +352,100 @@ def hold_filter(ins, rows, label, fp32, reps=10, n_cycles=N_CYCLES):
     return row
 
 
+def bits_equal(a, b):
+    """Equal bit for bit, or NaN where the other is NaN."""
+    a, b = a.contiguous(), b.contiguous()
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+    return bool(same.all())
+
+
+def launches_in(fn):
+    """CUDA kernel launches the host makes in ``fn()``, counted by
+    ``torch.profiler`` (the runtime's launch calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+
+
+def hold_lift_init(kps, masks, noises, label, reps=3):
+    """``lift_init``'s kernel against its plain version on the card, on one
+    batch's own inputs (``engine._init_inputs``): equal bit for bit, NaN
+    where the plain version gives NaN (the all-masked padding rows).
+    Returns (the kernel's ``_init_core`` planes, the measured row)."""
+    Xx, Xy, Xw, *walk = engine._init_inputs(kps, masks, noises)
+    ins = (Xx, Xy, *walk)
+    before = li.lift_init.launches
+    got = li.lift_init(*ins)
+    launches = li.lift_init.launches - before
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = li.lift_init_plain(*ins)
+    t1.record()
+    torch.cuda.synchronize()
+    equal = all(bits_equal(g, w) for g, w in zip(got, want))
+    ms = cuda_ms(lambda: li.lift_init(*ins), reps=reps)
+    li.lift_init.launches = before + launches  # timing, not the path
+    B, T = masks.shape
+    byte_s = (li.BYTES_PER_FRAME * B * T + 4 * B * (li.J - 1)) / PEAK_BYTES
+    flop_s = li.FLOPS_PER_FRAME * B * T / PEAK_FP32_FLOPS
+    row = {"inputs": label, "B": B, "T": T, "launches": launches, "bit_equal": equal,
+           "ms": ms, "plain_ms": t0.elapsed_time(t1), "bound_ms": 1e3 * max(flop_s, byte_s),
+           "bound_by": "operations" if flop_s >= byte_s else "bytes"}
+    log("kernel lift_init " + json.dumps(row))
+    if not (equal and launches == 1):
+        raise AssertionError(f"lift_init disagrees with its plain version: {row}")
+    return got + (Xx, Xy, Xw), row
+
+
+def lift_init_production():
+    """``lift_init`` at B=128 for T=256 and 1920 (128 seeded clips of T
+    frames each, packed and normalised as the engine does), and the launches
+    of one such batch's ``_init_core`` with the kernel and with the plain
+    walk in its place.  Returns the rows."""
+    rng = np.random.RandomState(SEED + 7)
+    rows = []
+    for T in (256, 1920):
+        chunk = [(i, c) for i, c in enumerate(synthetic_clips_of(rng, 128, T))]
+        kps, masks, noises = (torch.from_numpy(a).to("cuda") for a in engine._pack(chunk, T))
+        _, row = hold_lift_init(kps, masks, noises, "production", reps=20)
+        before = li.lift_init.launches
+        row["init_core_launches"] = launches_in(lambda: engine._init_core(kps, masks, noises))
+        li.lift_init.launches = before  # a count, not the path
+
+        def plain():
+            Xx, Xy, _, *walk = engine._init_inputs(kps, masks, noises)
+            li.lift_init_plain(Xx, Xy, *walk)
+
+        row["init_core_launches_plain"] = launches_in(plain)
+        log(f"lift.init launches a batch at B=128, T={T}: "
+            f"{row['init_core_launches_plain']} with the plain walk, "
+            f"{row['init_core_launches']} with the kernel")
+        rows.append(row)
+    return rows
+
+
 def kernel_phase(clips, fp32):
     """CUDA filter_sgd against its plain version at 900 cycles: at the
     production shapes B=128, T in {64, 256, 1920} (random planes, masked
     tails), then on every batch the lifting path launches for ``clips``,
     with that batch's own inputs (the engine's plan, packing and
-    initialization).  Returns (production rows, path rows)."""
+    initialization, ``lift_init`` held bit for bit on each).  Returns
+    (production rows, path rows, ``lift_init``'s path rows)."""
     rng = np.random.RandomState(SEED)
     prod = [hold_filter(filter_inputs(rng, 128, T, "cuda"), 128, "random", fp32)
             for T in (64, 256, 1920)]
-    path = []
+    path, init_path = [], []
     for tb, chunk in engine._plan(clips):
         kps, masks, noises = (torch.from_numpy(a).to("cuda")
                               for a in engine._pack(chunk, tb))
-        x0, y0, z0, Xx, Xy, Xw = engine._init_core(kps, masks, noises)
-        path.append(hold_filter((x0, y0, z0, Xx, Xy, Xw, masks), len(chunk),
-                                "path batch", fp32, reps=3))
+        planes, init_row = hold_lift_init(kps, masks, noises, "path batch")
+        init_path.append(init_row)
+        path.append(hold_filter(planes + (masks,), len(chunk), "path batch", fp32, reps=3))
     plans = sorted({tuple(r["launch_plan"].values()) for r in path})
     log(f"filter_sgd on the path's {len(path)} batches: launch plans (K, L, W, R) "
         f"{plans}, max_abs_err {max(r['max_abs_err'] for r in path):.3e}, kernel "
@@ -375,7 +454,11 @@ def kernel_phase(clips, fp32):
         f"{sum(r['live_bound_ms'] for r in path):.3f} ms, live issue floor "
         f"{sum(r['live_issue_floor_ms'] for r in path):.3f} ms, plain "
         f"{sum(r['plain_ms'] for r in path):.3f} ms")
-    return prod, path
+    log(f"lift_init on the path's {len(init_path)} batches: bit-equal, kernel "
+        f"{sum(r['ms'] for r in init_path):.3f} ms summed, bound "
+        f"{sum(r['bound_ms'] for r in init_path):.3f} ms, plain "
+        f"{sum(r['plain_ms'] for r in init_path):.3f} ms")
+    return prod, path, init_path
 
 
 # The raw phase's OpenPose tree: per split, the utterances of each video
@@ -441,7 +524,7 @@ def raw_phase(fp32):
     batch of the path against its plain version (the long rows too); the
     lifting of the two shortest and two longest videos against the port's
     CPU path; finite (T, 288) r6d.  Returns (filter_sgd launches of the
-    path, the held batches)."""
+    path, the held batches, ``lift_init``'s held batches)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_raw_") as tmp:
         root, data_dir = os.path.join(tmp, "raw"), os.path.join(tmp, "data")
         t0 = time.perf_counter()
@@ -458,12 +541,14 @@ def raw_phase(fp32):
              "--n_cycles", str(N_CYCLES), "--workers", str(workers)]))
 
         fs.filter_sgd.launches = 0  # counts of the raw path start here
+        li.lift_init.launches = 0
         openpose.FRAMES.update(native=0, json=0)
         t0 = time.perf_counter()
         stats = process_dataset.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, parsed = fs.filter_sgd.launches, dict(openpose.FRAMES)
+        init_launches = li.lift_init.launches
 
         ingest = sum(s["ingest_s"] for s in stats.values())
         lift_s = sum(s["lift_s"] for s in stats.values())
@@ -500,13 +585,15 @@ def raw_phase(fp32):
             f"parsing alone, one process: native {native_rate:.0f} frames/s, JSON "
             f"{json_rate:.0f} frames/s")
 
-        held = []
+        held, init_held = [], []
         for split in RAW_VIDEOS:
             for tb, chunk in raw_batches(feats[split], args.n_partitions):
                 kps, masks, noises = (torch.from_numpy(a).to("cuda")
                                       for a in engine._pack(chunk, tb))
-                held.append(hold_filter(engine._init_core(kps, masks, noises) + (masks,),
-                                        len(chunk), "raw batch", fp32, reps=3))
+                planes, init_row = hold_lift_init(kps, masks, noises, "raw batch")
+                init_held.append(init_row)
+                held.append(hold_filter(planes + (masks,), len(chunk), "raw batch", fp32,
+                                        reps=3))
         for r in held:
             if len(r["launch_plan"]) == 6:
                 log(f"raw long row B={r['B']} T={r['T']}: plan {r['launch_plan']}, "
@@ -519,6 +606,12 @@ def raw_phase(fp32):
             f"{sum(r['ms'] for r in held):.3f} ms summed, bound "
             f"{sum(r['bound_ms'] for r in held):.3f} ms, plain "
             f"{sum(r['plain_ms'] for r in held):.3f} ms")
+        if init_launches != len(init_held):
+            raise AssertionError(f"the raw path launched lift_init {init_launches} times "
+                                 f"for {len(init_held)} batches")
+        log(f"lift_init on the raw path's {len(init_held)} batches (one launch each): "
+            f"bit-equal, kernel {sum(r['ms'] for r in init_held):.3f} ms summed, plain "
+            f"{sum(r['plain_ms'] for r in init_held):.3f} ms")
 
         clips = [(c.shape[0], split, i) for split in RAW_VIDEOS
                  for i, c in enumerate(feats[split])]
@@ -532,7 +625,7 @@ def raw_phase(fp32):
             f"({time.perf_counter() - t0:.1f} s)")
         if not (xy_err <= LIFT_ATOL and err <= LIFT_ATOL and z_err <= LIFT_Z_ATOL):
             raise AssertionError("raw lifting on the card disagrees with the CPU path")
-    return launches, held
+    return launches, held, init_held
 
 
 # robust loss, kernel vs plain: the JAX package's own tolerances
@@ -692,6 +785,13 @@ def synthetic_clips(rng, n):
     return clips
 
 
+def synthetic_clips_of(rng, n, T):
+    """``n`` OpenPose-like (T, 150) clips of ``T`` frames each."""
+    kp = rng.uniform(100, 500, size=(n, T, 150)).astype(np.float32)
+    kp[:, :, 2::3] = rng.uniform(0.5, 1.0, size=(n, T, 50))
+    return list(kp)
+
+
 def mpjpe(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return float(np.linalg.norm((a - b).reshape(*a.shape[:-1], 50, 3), axis=-1).mean())
@@ -726,10 +826,15 @@ def lift_to_r6d(clips):
 
 def path_phase(clips):
     """The serving chain on the card, checked against the CPU path; returns
-    the filter_sgd launches of the main path and the xyz and r6d clips it
-    made."""
+    the filter_sgd and lift_init launches of the main path and the xyz and
+    r6d clips it made."""
     fs.filter_sgd.launches = 0  # counts of the main path start here
+    li.lift_init.launches = 0
     xyz, r6d = lift_to_r6d(clips)
+    init_launches = li.lift_init.launches  # the main path's lifting: one a batch
+    if init_launches != len(engine._plan(clips)):
+        raise AssertionError(f"the lifting path launched lift_init {init_launches} times "
+                             f"for {len(engine._plan(clips))} batches")
     win = windows.make_equal_len(r6d, method="cutting+reflect")
     X = win[:, :, :36].astype(np.float32)
     Y = win[:, :, 36:288].astype(np.float32)
@@ -742,7 +847,7 @@ def path_phase(clips):
     net = registry.build_generator("v1", 36, 252, default_size=256, seed=SEED,
                                    device="cuda")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        return _enhance_and_check(net, tmp, clips, xyz, X, Xs, sY, mY), xyz, r6d
+        return _enhance_and_check(net, tmp, clips, xyz, X, Xs, sY, mY), init_launches, xyz, r6d
 
 
 def _enhance_and_check(net, tmp, clips, xyz, X, Xs, sY, mY):
@@ -2022,12 +2127,14 @@ def replay_phase(fp32, robust_rows):
         try:
             fs.filter_sgd.launches = 0  # counts of the replay start here
             rl.robust_lossfun.launches = 0
+            li.lift_init.launches = 0
             t0 = time.perf_counter()
             report = article_replay.main(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {"filter_sgd": fs.filter_sgd.launches,
-                        "robust_loss": rl.robust_lossfun.launches}
+                        "robust_loss": rl.robust_lossfun.launches,
+                        "lift_init": li.lift_init.launches}
         finally:
             rl.robust_loss_and_dx = launch
             os.chdir(cwd)
@@ -2069,15 +2176,17 @@ def replay_phase(fp32, robust_rows):
             f"{fixture_err['xyz_']:.3e}, everything else equal "
             f"({time.perf_counter() - t0:.1f} s); worst entries {json.dumps(fixture_worst)}")
         raw_dir = os.path.join(work, "raw_processed")
-        filter_rows = []
+        filter_rows, init_rows = [], []
         for split in ("train", "val", "test"):
             feats = io.load_binary(os.path.join(raw_dir, f"xy_{split}.pkl"))
             for tb, chunk in raw_batches(feats, REPLAY_RAW_PARTITIONS):
                 kps, masks, noises = (torch.from_numpy(a).to("cuda")
                                       for a in engine._pack(chunk, tb))
+                planes, init_row = hold_lift_init(kps, masks, noises, "replay raw batch")
+                init_rows.append(init_row)
                 filter_rows.append(hold_filter(
-                    engine._init_core(kps, masks, noises) + (masks,), len(chunk),
-                    "replay raw batch", fp32, reps=20, n_cycles=REPLAY_RAW_CYCLES))
+                    planes + (masks,), len(chunk), "replay raw batch", fp32, reps=20,
+                    n_cycles=REPLAY_RAW_CYCLES))
         held = {(r["N"], r["D"]) for r in robust_rows}
         if not shapes:
             raise AssertionError("no robust_loss call of the replay was recorded: the trainer "
@@ -2088,6 +2197,9 @@ def replay_phase(fp32, robust_rows):
         if held_launches != launches["filter_sgd"]:
             raise AssertionError(f"the raw-smoke batches held launch filter_sgd {held_launches} "
                                  f"times, the replay {launches['filter_sgd']}")
+        if launches["lift_init"] != len(init_rows):
+            raise AssertionError(f"the replay launched lift_init {launches['lift_init']} times "
+                                 f"for its {len(init_rows)} raw-smoke batches")
 
     summary = {
         "scale": report["scale"], "wall_s": wall, "launches": launches,
@@ -2131,6 +2243,10 @@ def replay_phase(fp32, robust_rows):
                             "max_err_over_tol": max(r["loss_err_over_tol"],
                                                     r["dx_err_over_tol"])}
                             for r in robust_rows]},
+        "lift_init": {"launches_replay": launches["lift_init"],
+                      "replay_held": [{k: r[k] for k in ("B", "T", "launches", "ms",
+                                                         "plain_ms", "bound_ms", "bit_equal")}
+                                      for r in init_rows]},
     }
 
 
@@ -3256,7 +3372,7 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
 
-    build_kernels(("filter_sgd", "robust_loss"))
+    build_kernels(("filter_sgd", "robust_loss", "lift_init"))
     fp32 = filter_fp32_per_element_cycle()
     log(f"filter_sgd update: {fp32} FP32 instructions per element and cycle "
         "(SASS of the built library)")
@@ -3265,13 +3381,14 @@ def main() -> int:
     robust = robust_kernel_phase()
     rng = np.random.RandomState(SEED + 2)
     replay_robust = [hold_robust(N, D, rng) for N, D in replay_robust_shapes()]
-    prod, path = kernel_phase(clips, fp32)
-    launches, xyz, r6d = path_phase(clips)
+    prod, path, init_path = kernel_phase(clips, fp32)
+    init_prod = lift_init_production()
+    launches, init_launches, xyz, r6d = path_phase(clips)
     t0 = time.perf_counter()
     lift_alt = lift_alt_phase(clips)
     log(f"lifting-alternatives phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    raw_launches, raw = raw_phase(fp32)
+    raw_launches, raw, init_raw = raw_phase(fp32)
     log(f"raw phase: {time.perf_counter() - t0:.1f} s")
     robust_launches, viz, (X, Y) = train_phase(xyz, r6d)
     utils = utils_phase(X, Y)
@@ -3329,6 +3446,24 @@ def main() -> int:
         "launches_mesh": mesh_filter,
         "mesh_lift_s": mesh_rows["lifting"]["seconds"],
         "mesh_time_sharded": mesh_rows["time_sharded"],
+    }, {
+        "name": "lift_init",
+        "route": "cuda",
+        "source": "multimodal_hand_pose_enhancement_for_sign_language_tpu_torch/csrc/lift_init.cu",
+        # no Pallas kernel: the XLA-compiled lax.scan over the bones
+        "replaces": "multimodal_hand_pose_enhancement_for_sign_language_tpu/lifting/init3d.py:202",
+        "launches": init_launches,
+        "bit_equal": all(r["bit_equal"] for r in
+                         init_prod + init_path + init_raw + replay["lift_init"]["replay_held"]),
+        "held_batches": len(init_path) + len(init_raw) + len(replay["lift_init"]["replay_held"]),
+        "production": [{k: r[k] for k in ("B", "T", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "init_core_launches", "init_core_launches_plain")}
+                       for r in init_prod],
+        "library_ms": None,  # no single PyTorch call walks the tree
+        "path_ms": sum(r["ms"] for r in init_path),
+        "launches_raw": len(init_raw),
+        "raw_path_ms": sum(r["ms"] for r in init_raw),
+        **replay["lift_init"],
     }, {
         "name": "robust_loss",
         "route": "cuda",

@@ -4,8 +4,9 @@ PyTorch counterpart of the JAX package's ``lifting/engine.py``, which
 replaces the reference's per-clip pipeline (utils/utils.py:44-137,
 ``Pool(24)`` over clips x [normalize -> prune -> initialization -> 900-step
 SGD]).  Clips are padded into (batch, T-bucket) groups and each group runs
-the whole pipeline batched; on a CUDA device the 900-cycle filter is the
-hand-written kernel ``ops/filter_sgd``.  Per-clip noise reproduces the
+the whole pipeline batched; on a CUDA device the walk along the bone tree
+and the 900-cycle filter are the hand-written kernels ``ops/lift_init`` and
+``ops/filter_sgd``.  Per-clip noise reproduces the
 reference's per-clip RandomState(1234) draws (utils/utils.py:46,66-74).
 
 The filter is chosen by the caller's ``filter_impl``, with the JAX
@@ -52,6 +53,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops.filter_sgd
     filter_sgd,
     filter_sgd_plain,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops.lift_init import lift_init
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
     mesh as mesh_lib,
 )
@@ -76,12 +78,13 @@ FILTER_IMPLS = ("pallas", "xla", "matpow")
 _IN_FLIGHT = 3
 
 
-def _init_core(kps, masks, noises):
-    """Pre-filter pipeline for a padded batch: normalization -> prune ->
-    initialization -> FK snapshot (utils/utils.py:44-92, sans filtering).
+def _init_inputs(kps, masks, noises):
+    """What the walk along the tree takes from a padded batch: normalization
+    -> prune -> mask, the bone-length medians and the noisy roots
+    (utils/utils.py:44-74, pose2Dto3D.py:73-116).
 
-    kps (B, T, 150), masks (B, T), noises (B, 3, T); returns
-    (x0, y0, z0, Xx, Xy, Xw), each (B, T, 50)."""
+    kps (B, T, 150), masks (B, T), noises (B, 3, T); returns (Xx, Xy, Xw
+    (B, T, 50), L_per_bone (B, 49), rootsx, rootsy, rootsz (B, T))."""
     Xx = kps[:, :, 0::3]
     Xy = kps[:, :, 1::3]
     Xw = kps[:, :, 2::3]
@@ -91,10 +94,21 @@ def _init_core(kps, masks, noises):
     m = masks[:, :, None]
     Xx, Xy, Xw = Xx * m, Xy * m, Xw * m
 
-    lines0, rx, ry, rz, ax, ay, az, _, _, _ = init3d.initialization(
-        Xx, Xy, Xw, _NOISE_SIGMA, noise=noises, mask=masks
-    )
-    x0, y0, z0 = filtering.fk_from_angles(lines0, rx, ry, rz, ax, ay, az)
+    lines = init3d.bone_length_classes(Xx, Xy, mask=masks)
+    roots = init3d.roots(Xx, Xy, _NOISE_SIGMA, noise=noises)
+    return (Xx, Xy, Xw, init3d.bone_lengths(lines), *roots)
+
+
+def _init_core(kps, masks, noises):
+    """Pre-filter pipeline for a padded batch: normalization -> prune ->
+    initialization -> FK snapshot (utils/utils.py:44-92, sans filtering),
+    the walk along the tree and its FK in ``ops/lift_init`` (the kernel on
+    the card).
+
+    kps (B, T, 150), masks (B, T), noises (B, 3, T); returns
+    (x0, y0, z0, Xx, Xy, Xw), each (B, T, 50)."""
+    Xx, Xy, Xw, L_per_bone, rx, ry, rz = _init_inputs(kps, masks, noises)
+    x0, y0, z0 = lift_init(Xx, Xy, L_per_bone, rx, ry, rz)
     return x0, y0, z0, Xx, Xy, Xw
 
 

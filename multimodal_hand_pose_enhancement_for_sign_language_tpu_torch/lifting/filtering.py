@@ -24,6 +24,7 @@ import torch
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.infer import (
     conv_matmul_precision,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import init3d
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import skeleton
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops.filter_sgd import (
     filter_sgd,
@@ -41,13 +42,15 @@ def fk_from_angles(lines, rootsx, rootsy, rootsz, anglesx, anglesy, anglesz):
 
     lines (B, 25), roots (B, T, 1), angles (B, T, 49); returns (B, T, 50)
     x, y, z planes."""
-    B, T, _ = rootsx.shape
+    return forward_kinematics(init3d.bone_lengths(lines), rootsx[:, :, 0],
+                              rootsy[:, :, 0], rootsz[:, :, 0], anglesx, anglesy, anglesz)
+
+
+def forward_kinematics(L_per_bone, rootsx, rootsy, rootsz, anglesx, anglesy, anglesz):
+    """``fk_from_angles`` from per-bone lengths (B, 49) and (B, T) roots."""
+    B, T = rootsx.shape
     n = skeleton.N_JOINTS
     eps = 1e-10
-    cls = torch.as_tensor(skeleton.BONE_LENGTH_CLASS, dtype=torch.int64,
-                          device=lines.device)
-    L_per_bone = torch.exp(lines[:, cls])  # (B, 49)
-
     normA = (
         torch.sqrt(anglesx * anglesx + anglesy * anglesy + anglesz * anglesz)
         + eps
@@ -59,7 +62,7 @@ def fk_from_angles(lines, rootsx, rootsy, rootsz, anglesx, anglesy, anglesz):
     Px = torch.zeros((B, n, T), dtype=rootsx.dtype, device=rootsx.device)
     Py = torch.zeros_like(Px)
     Pz = torch.zeros_like(Px)
-    Px[:, 0], Py[:, 0], Pz[:, 0] = rootsx[:, :, 0], rootsy[:, :, 0], rootsz[:, :, 0]
+    Px[:, 0], Py[:, 0], Pz[:, 0] = rootsx, rootsy, rootsz
     for i in range(skeleton.N_BONES):
         a, b = int(skeleton.BONE_START[i]), int(skeleton.BONE_END[i])
         L = L_per_bone[:, i : i + 1]

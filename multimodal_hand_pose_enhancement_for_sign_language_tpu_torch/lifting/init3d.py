@@ -3,10 +3,11 @@ hypotheses (computeB) and forward accumulation over the 49-bone tree.
 
 PyTorch counterpart of the JAX package's ``lifting/init3d.py`` (the
 reference's 3DposeEstimator/pose2Dto3D.py:33-159), batched over clips:
-planes are (B, T, n), the bone loop is a Python loop over the 49 bones on
-(B, T) tensors, and every frame is solved in parallel.  The hypothesis
-selection keeps the reference's first-minimum rule and all of its nan/inf
-guards.
+planes are (B, T, n), the bone loop (``walk_bones``) is a Python loop over
+the 49 bones on (B, T) tensors, and every frame is solved in parallel.  The
+hypothesis selection keeps the reference's first-minimum rule and all of its
+nan/inf guards.  The lifting engine walks the bones through
+``ops/lift_init``, whose CUDA kernel gives this loop's numbers bit for bit.
 """
 
 from __future__ import annotations
@@ -129,27 +130,17 @@ def compute_b(ax, ay, az, tx, ty, L):
     return bx, by, bz
 
 
-def initialization(Xx, Xy, Xw, sigma=0.001, noise=None, rng=None, dtype="float32",
-                   mask=None):
-    """Initial 3D estimate (pose2Dto3D.py:73-159) for (B, T, n) planes.
-
-    ``noise``: optional (B, 3, T) uniform root noise (the reference's
-    per-clip RandomState(1234) draws, see ``engine._clip_noise``);
-    otherwise, with a ``torch.Generator`` ``rng`` on the planes' device,
-    U(-sigma, sigma) draws for the roots' x, y and z, in that order, each
-    (B, T); with neither, no noise.  ``dtype`` is the reference's argument,
-    accepted for its signature: the planes' dtype decides, as in the JAX
-    package.
-
-    Returns (lines (B, 25), rootsx, rootsy, rootsz (B, T, 1), anglesx,
-    anglesy, anglesz (B, T, 49), Yx, Yy, Yz (B, T, n)).
-    """
-    B, T, n = Xx.shape
-    lines = bone_length_classes(Xx, Xy, mask=mask)
+def bone_lengths(lines):
+    """Per-bone lengths (B, 49) from the log class medians (B, 25)."""
     cls = torch.as_tensor(skeleton.BONE_LENGTH_CLASS, dtype=torch.int64,
-                          device=Xx.device)
-    L_per_bone = torch.exp(lines[:, cls])  # (B, 49)
+                          device=lines.device)
+    return torch.exp(lines[:, cls])
 
+
+def roots(Xx, Xy, sigma=0.001, noise=None, rng=None):
+    """The roots' x, y and z, each (B, T): joint 0's 2D position and z = 0,
+    plus the noise ``initialization`` describes."""
+    B, T, _ = Xx.shape
     rootsx = Xx[:, :, 0]
     rootsy = Xy[:, :, 0]
     rootsz = torch.zeros((B, T), dtype=Xx.dtype, device=Xx.device)
@@ -165,7 +156,18 @@ def initialization(Xx, Xy, Xw, sigma=0.001, noise=None, rng=None, dtype="float32
         rootsx = rootsx + draw()
         rootsy = rootsy + draw()
         rootsz = rootsz + draw()
+    return rootsx, rootsy, rootsz
 
+
+def walk_bones(Xx, Xy, L_per_bone, rootsx, rootsy, rootsz):
+    """The walk along the tree (pose2Dto3D.py:118-159): for each bone in
+    order, ``compute_b``'s direction from the bone's start joint towards its
+    2D target, the nan/inf guards, |z| + 0.001 and the normalisation, then
+    the end joint placed at the start plus the bone's length along it.
+
+    Planes (B, T, n), lengths (B, 49), roots (B, T); returns the directions
+    gx, gy, gz (B, T, 49) and the joints Yx, Yy, Yz (B, T, n)."""
+    B, T, n = Xx.shape
     # joint-major (B, n, T) planes: each bone step reads and writes rows
     XxT = Xx.transpose(1, 2)
     XyT = Xy.transpose(1, 2)
@@ -199,12 +201,7 @@ def initialization(Xx, Xy, Xw, sigma=0.001, noise=None, rng=None, dtype="float32
         gxs.append(gx)
         gys.append(gy)
         gzs.append(gz)
-
     return (
-        lines,
-        rootsx[:, :, None],
-        rootsy[:, :, None],
-        rootsz[:, :, None],
         torch.stack(gxs, dim=2),  # (B, T, 49)
         torch.stack(gys, dim=2),
         torch.stack(gzs, dim=2),
@@ -212,3 +209,24 @@ def initialization(Xx, Xy, Xw, sigma=0.001, noise=None, rng=None, dtype="float32
         Yy.transpose(1, 2),
         Yz.transpose(1, 2),
     )
+
+
+def initialization(Xx, Xy, Xw, sigma=0.001, noise=None, rng=None, dtype="float32",
+                   mask=None):
+    """Initial 3D estimate (pose2Dto3D.py:73-159) for (B, T, n) planes.
+
+    ``noise``: optional (B, 3, T) uniform root noise (the reference's
+    per-clip RandomState(1234) draws, see ``engine._clip_noise``);
+    otherwise, with a ``torch.Generator`` ``rng`` on the planes' device,
+    U(-sigma, sigma) draws for the roots' x, y and z, in that order, each
+    (B, T); with neither, no noise.  ``dtype`` is the reference's argument,
+    accepted for its signature: the planes' dtype decides, as in the JAX
+    package.
+
+    Returns (lines (B, 25), rootsx, rootsy, rootsz (B, T, 1), anglesx,
+    anglesy, anglesz (B, T, 49), Yx, Yy, Yz (B, T, n)).
+    """
+    lines = bone_length_classes(Xx, Xy, mask=mask)
+    rootsx, rootsy, rootsz = roots(Xx, Xy, sigma, noise=noise, rng=rng)
+    walked = walk_bones(Xx, Xy, bone_lengths(lines), rootsx, rootsy, rootsz)
+    return (lines, rootsx[:, :, None], rootsy[:, :, None], rootsz[:, :, None], *walked)

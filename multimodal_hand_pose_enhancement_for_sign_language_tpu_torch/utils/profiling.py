@@ -12,7 +12,9 @@ run.  While a profiler records, a span also enters
 timeline and clock beside the device's records.  The stack is the process's:
 spans are opened on one thread.
 
-Names are ``<layer>.<part>``: ``lift.*`` in ``lifting/engine.lift_clips``,
+Names are ``<layer>.<part>``: ``lift.*`` in ``lifting/engine.lift_clips``
+(the count ``lift.init_kernel`` in ``ops/lift_init``, a batch whose walk
+along the bone tree took the CUDA kernel),
 ``train.*`` in ``train/gan.GanTrainer``'s steps (``train.dead_branch`` in
 v4_deeper's train-mode forward, ``models/generators``), ``infer.*`` in
 ``infer.run_inference``.

@@ -24,7 +24,9 @@ closed form ``filter_xyz_matpow`` at 'float32' within 3e-4 of the kernel
 paths on a one-rank NCCL group: a DP G step equals the step without a mesh
 at the step tolerances' loss bound (1e-5 relative) and launches the robust
 loss; sharded lifting launches the filter kernel and equals the unsharded
-lifting within 1e-6.
+lifting within 1e-6.  The lifting's initialisation (``lift_init``) equals
+its plain version bit for bit: its z is ill-conditioned, so nothing less
+keeps the lifting's result.
 """
 
 import numpy as np
@@ -48,8 +50,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.classif
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
     filter_sgd as fs,
+    lift_init as li,
     robust_loss as rl,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils import profiling
 
 
 @pytest.fixture
@@ -557,6 +561,102 @@ def test_v2_single_clip_runs_the_kernel(cuda, T):
     for g, w_ in zip(got, want):
         assert g.shape == (T, 50)
         torch.testing.assert_close(g, w_[0], atol=2e-4, rtol=0)
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit, or NaN where the other is NaN."""
+    a, b = a.contiguous(), b.contiguous()
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+    return bool(same.all())
+
+
+def _init_batch(nb, tb, device, seed=0):
+    """A lifting batch's inputs to the walk along the tree
+    (``engine._init_inputs``): nb rows of tb frames, the last quarter of
+    them the all-masked padding of a pow2 batch (infinite bone lengths), the
+    live clips 1 to 63 frames shorter than tb but the first, each with four
+    pruned (zeroed) frames; and planted in clip 0, frame 1: bone 0's target
+    level with the root (ay == ty, so xx1 and xx2 are not finite); frame 2:
+    bone 6's target at 3e38, so h0's reprojection error is not finite."""
+    rng = np.random.RandomState(seed)
+    clips = []
+    for i in range(nb - nb // 4):
+        T = tb if i == 0 else int(rng.randint(max(1, tb - 63), tb + 1))
+        kp = rng.uniform(100, 500, size=(T, 150)).astype(np.float32)
+        kp[:, 2::3] = rng.uniform(0.5, 1.0, size=(T, 50))
+        kp[T // 3 : T // 3 + 4, 2:24:3] = 0.1
+        clips.append(kp)
+    batch = engine._pack(list(enumerate(clips)), tb)
+    assert batch[0].shape[0] == nb
+    Xx, Xy, _, L, rx, ry, rz = engine._init_inputs(
+        *(torch.from_numpy(a).to(device) for a in batch))
+    Xy[0, 1, 1] = ry[0, 1]
+    Xx[0, 2, 7] = 3e38
+    return Xx, Xy, L, rx, ry, rz
+
+
+def test_lift_init_kernel_entry_refuses_a_cpu_tensor():
+    """The kernel's entry point never runs the plain version in its place
+    (checked without a card); the wrapper does, for a CPU tensor only, and
+    counts nothing."""
+    ins = _init_batch(2, 64, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        li.lift_init_kernel(*ins)
+    before = li.lift_init.launches
+    for got, want in zip(li.lift_init(*ins), li.lift_init_plain(*ins)):
+        assert _bits_equal(got, want)
+    assert li.lift_init.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 8, 128])
+@pytest.mark.parametrize("tb", [64, 256, 1920])
+def test_lift_init_kernel_is_bit_equal_to_plain(cuda, nb, tb):
+    """The kernel against the plain op stream on the card at the lifting
+    cell's batch shapes: the same bits, NaN where the plain version gives
+    NaN; one launch a call."""
+    ins = _init_batch(nb, tb, cuda)
+    before = li.lift_init.launches
+    got = li.lift_init(*ins)
+    assert li.lift_init.launches == before + 1
+    want = li.lift_init_plain(*ins)
+    for g, w in zip(got, want):
+        assert g.shape == (nb, tb, 50) and _bits_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_lift_init_kernel_refuses_bad_input(cuda):
+    ins = list(_init_batch(2, 64, cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        li.lift_init_kernel(*ins[:2], ins[2].cpu(), *ins[3:])
+    with pytest.raises(ValueError, match="float32"):
+        li.lift_init(ins[0].double(), *ins[1:])
+    with pytest.raises(ValueError, match="shape"):
+        li.lift_init(*ins[:2], ins[2][:, :48], *ins[3:])
+    with pytest.raises(ValueError, match="shape"):
+        li.lift_init(*ins[:3], ins[3][:, :63], *ins[4:])
+
+
+@pytest.mark.cuda
+def test_lift_clips_takes_the_init_kernel_once_a_batch(cuda):
+    """``lift_init.launches`` and the tracer's ``lift.init_kernel`` count one
+    a batch of ``lift_clips`` on the card."""
+    rng = np.random.RandomState(4)
+    clips = []
+    for T in (40, 100, 130, 300):
+        kp = rng.uniform(100, 500, size=(T, 150)).astype(np.float32)
+        kp[:, 2::3] = rng.uniform(0.5, 1.0, size=(T, 50))
+        clips.append(kp)
+    before = li.lift_init.launches
+    profiling.enable()
+    try:
+        engine.lift_clips(clips, n_cycles=20, device=cuda)
+        counts = profiling.snapshot()["counts"]
+    finally:
+        profiling.disable()
+    n = len(engine._plan(clips))
+    assert n == 4
+    assert li.lift_init.launches - before == n == counts["lift.init_kernel"]
 
 
 @pytest.mark.cuda

@@ -41,6 +41,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import
     init3d as t_init3d,
     pose2d as t_pose2d,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
+    lift_init as t_lift_init,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils import profiling
 
 ATOL = 2e-4  # test_pallas_kernels.py:139
 Z_ATOL = 2e-3  # z, float32-ill-conditioned; see the module docstring
@@ -134,6 +138,37 @@ def test_initialization_and_fk(rng):
             tol = Z_ATOL if i in z_planes else ATOL
             np.testing.assert_allclose(o[b].numpy()[valid], np.asarray(r)[valid],
                                        atol=tol)
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit, or NaN where the other is NaN."""
+    a, b = a.contiguous(), b.contiguous()
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+    return bool(same.all())
+
+
+def test_init_core_is_initialization_then_fk(rng):
+    """The engine's pre-filter pipeline, now through ``ops/lift_init`` (its
+    plain version on the CPU), gives what ``initialization`` then
+    ``fk_from_angles`` give, bit for bit, also in the all-masked padding row
+    (whose bone lengths are infinite), and counts no kernel launch."""
+    # a third row of zeros: the pow2 padding of a batch
+    kps, masks, noises = _t(*(np.concatenate([a, np.zeros_like(a[:1])])
+                              for a in _padded(rng)))
+    before = t_lift_init.lift_init.launches
+    profiling.enable()
+    try:
+        x0, y0, z0, Xx, Xy, Xw = t_engine._init_core(kps, masks, noises)
+        counts = profiling.snapshot()["counts"]
+    finally:
+        profiling.disable()
+    init = t_init3d.initialization(Xx, Xy, Xw, 0.001, noise=noises, mask=masks)
+    want = t_filtering.fk_from_angles(*init[:7])
+    for got, w in zip((x0, y0, z0), want):
+        assert _bits_equal(got, w)
+        assert bool(got[:2].isfinite().all()) and not bool(got[2].isfinite().all())
+    assert t_lift_init.lift_init.launches == before
+    assert "lift.init_kernel" not in counts
 
 
 def test_initialization_z_is_float32_noise(rng, monkeypatch):

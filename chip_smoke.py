@@ -91,15 +91,10 @@ against a float64 CPU evaluation: at most twice the CPU's float32 error);
 bert-base under TF32 must miss the bound; rates of each tower.  Neither
 kernel lies on this path (its launch counts, read alone, are 0).
 
-Lifting alternatives (after serving): the serving clips of at most 256
-frames through ``lift_clips`` with each ``filter_impl``: 'pallas' (the
-kernel, launches counted), 'matpow' at float32 (within 3e-4 of the kernel)
-and at TF32 (reported), 'xla' named (the plain loop on the card, within the
-filter tolerance); matpow's refusal of a longer bucket; ``python -m ...demo``
-on the card against the CPU on its synthetic 64 frames and a seeded
-1,920-frame sequence (x, y within 2e-4, z within 2e-3; ``filter_sgd``
-launches counted); matpow and the kernel timed at B=128, T=64 and 256, with
-matpow's peak memory.
+Lifting alternatives (after serving): ``python -m ...demo`` (the
+single-clip v2 API) on the card against the CPU on its synthetic 64 frames
+and a seeded 1,920-frame sequence (x, y within 2e-4, z within 2e-3;
+``filter_sgd`` launches counted).
 
 Options (after training): v1's and v4_deeper+text's bf16 forwards against
 float32 (the JAX package's bars: max < 0.15, mean < 0.02) and timed at
@@ -195,10 +190,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data import (
     video,
     windows,
 )
-from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import (
-    engine,
-    filtering,
-)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import engine
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.losses.robust import (
     AdaptiveLossFunction,
 )
@@ -2505,36 +2497,8 @@ def featurizer_phase():
     return launches
 
 
-# lifting-alternatives phase: the engine's three filters on the serving
-# clips that matpow takes (T <= engine.MATPOW_MAX_T), its guard, and the
-# demo CLI (the single-clip v2 API) card vs CPU
-MATPOW_ATOL = 3e-4  # the JAX package's matpow bound (test_pallas_kernels.py:62-82)
-MATPOW_SHAPES = ((128, 64), (128, 256))  # (B, T): the engine's batch, its shortest and longest bucket
+# lifting-alternatives phase: the demo CLI (the single-clip v2 API) card vs CPU
 DEMO_FRAMES = 1920  # the serving clips' longest
-
-
-def matpow_timing(B, T, rng, reps=3):
-    """filter_xyz_matpow at 'float32' and 'tensorfloat32' against the kernel
-    on seeded planes (B, T), 900 cycles: ms, peak memory, error."""
-    ins = filter_inputs(rng, B, T, "cuda")
-    want = fs.filter_sgd(*ins, LR, N_CYCLES)
-    kernel_ms = cuda_ms(lambda: fs.filter_sgd(*ins, LR, N_CYCLES), reps=reps)
-    row = {"B": B, "T": T, "kernel_ms": kernel_ms}
-    for prec in ("float32", "tensorfloat32"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        got = filtering.filter_xyz_matpow(*ins, LR, N_CYCLES, precision=prec)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        live = ins[-1] > 0
-        err = max(float((g - w)[live].abs().max()) for g, w in zip(got, want))
-        del got
-        ms = cuda_ms(lambda: filtering.filter_xyz_matpow(*ins, LR, N_CYCLES, precision=prec),
-                     reps=reps)
-        row[prec] = {"ms": ms, "peak_gib": peak / 2**30, "max_abs_err_vs_kernel": err}
-    log("matpow " + json.dumps(row))
-    return row
 
 
 def demo_sequence(rng, T):
@@ -2544,55 +2508,12 @@ def demo_sequence(rng, T):
     return X
 
 
-def lift_alt_phase(clips):
-    """The lifting alternatives on the card, ``filter_sgd``'s count at 0 just
-    before: ``lift_clips`` over the serving clips of T <= MATPOW_MAX_T with
-    filter_impl 'pallas' (the kernel), 'matpow' at 'float32' (within
-    MATPOW_ATOL of the kernel) and 'tensorfloat32' (reported), and 'xla'
-    named (the plain loop on the card, within FILTER_ATOL of the kernel);
-    matpow refuses a longer bucket; the demo CLI on the card against the
-    demo on the CPU (its synthetic 64 frames and a seeded DEMO_FRAMES-frame
-    .npy), at the lifting tolerances; matpow and the kernel timed at
-    MATPOW_SHAPES.  Returns the phase's summary."""
-    short = [c for c in clips if c.shape[0] <= engine.MATPOW_MAX_T]
-    frames = sum(c.shape[0] for c in short)
+def lift_alt_phase():
+    """The demo CLI on the card against the demo on the CPU (its synthetic
+    64 frames and a seeded DEMO_FRAMES-frame .npy), at the lifting
+    tolerances, ``filter_sgd``'s count at 0 just before.  Returns the
+    phase's summary."""
     fs.filter_sgd.launches = 0  # counts of this path start here
-    runs = {}
-    for impl, prec in (("pallas", None), ("matpow", "float32"),
-                       ("matpow", "tensorfloat32"), ("xla", None)):
-        before = fs.filter_sgd.launches
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = engine.lift_clips(short, n_cycles=N_CYCLES, device="cuda", filter_impl=impl,
-                                matpow_precision=prec or "float32")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        runs[impl if prec is None else f"{impl} {prec}"] = {
-            "out": out, "wall_s": wall, "frames_per_s": frames / wall,
-            "launches": fs.filter_sgd.launches - before,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    kernel = runs["pallas"]["out"]
-    for name, r in runs.items():
-        r["max_abs_vs_kernel"] = max(float(np.abs(a - b).max()) for a, b in zip(r.pop("out"), kernel))
-    log(f"lift_clips on {len(short)} serving clips of T <= {engine.MATPOW_MAX_T} ({frames} "
-        f"frames, 900 cycles) by filter_impl: " + json.dumps(runs))
-    if not runs["pallas"]["launches"] > 0:
-        raise AssertionError("filter_impl='pallas' never launched filter_sgd")
-    if any(runs[k]["launches"] for k in runs if k != "pallas"):
-        raise AssertionError(f"matpow or the named plain loop launched the kernel: {runs}")
-    if not runs["matpow float32"]["max_abs_vs_kernel"] <= MATPOW_ATOL:
-        raise AssertionError("matpow at float32 disagrees with the kernel")
-    if not runs["xla"]["max_abs_vs_kernel"] <= FILTER_ATOL:
-        raise AssertionError("the plain loop on the card disagrees with the kernel")
-    try:
-        engine.lift_clips([demo_sequence(np.random.RandomState(SEED), 300)], n_cycles=1,
-                          device="cuda", filter_impl="matpow")
-    except ValueError as e:
-        log(f"matpow refuses T=320: {e}")
-    else:
-        raise AssertionError("filter_impl='matpow' took a T=320 bucket")
-
     demo_rows = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as tmp:
         seq = os.path.join(tmp, "seq.npy")
@@ -2619,12 +2540,7 @@ def lift_alt_phase(clips):
             if not (launches > 0 and dxy <= LIFT_ATOL and dz <= LIFT_Z_ATOL):
                 raise AssertionError(f"the demo on the card disagrees with the CPU: {row}")
             demo_rows.append(row)
-    launches = fs.filter_sgd.launches  # end of this path
-    rng = np.random.RandomState(SEED + 8)
-    matpow = [matpow_timing(B, T, rng) for B, T in MATPOW_SHAPES]
-    return {"launches_lifting_alt": launches, "lifting_alt": {
-        "clips": len(short), "frames": frames, "by_filter_impl": runs, "demo": demo_rows,
-        "matpow_timed": matpow}}
+    return {"launches_lifting_alt": fs.filter_sgd.launches, "lifting_alt": {"demo": demo_rows}}
 
 
 # options phase: bf16 serving and training, fused_d, grad flow, float64 clips
@@ -3385,7 +3301,7 @@ def main() -> int:
     init_prod = lift_init_production()
     launches, init_launches, xyz, r6d = path_phase(clips)
     t0 = time.perf_counter()
-    lift_alt = lift_alt_phase(clips)
+    lift_alt = lift_alt_phase()
     log(f"lifting-alternatives phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     raw_launches, raw, init_raw = raw_phase(fp32)
@@ -3438,8 +3354,7 @@ def main() -> int:
         # the article replay (its raw smoke at 60 cycles), its counts read alone
         **replay["filter_sgd"],
         "launches_featurizers": feat_launches["filter_sgd"],  # not on that path
-        # the lifting alternatives: filter_impl 'pallas' on the serving clips
-        # of T <= 256, and the demo (the single-clip v2 API), counts read alone
+        # the demo (the single-clip v2 API), its counts read alone
         **lift_alt,
         # the serving clips' lifting sharded over a one-rank NCCL mesh, its
         # counts read alone, and the time-sharded filter held against it

@@ -9,14 +9,9 @@ and the 900-cycle filter are the hand-written kernels ``ops/lift_init`` and
 ``ops/filter_sgd``.  Per-clip noise reproduces the
 reference's per-clip RandomState(1234) draws (utils/utils.py:46,66-74).
 
-The filter is chosen by the caller's ``filter_impl``, with the JAX
-package's names: 'pallas' (the default) is ``ops/filter_sgd.filter_sgd``
-(the CUDA kernel on the card, its plain loop on the CPU), 'matpow' the
-closed form ``filtering.filter_xyz_matpow`` (T up to ``MATPOW_MAX_T``, at
-``matpow_precision``), 'xla' the plain loop on any device.  No environment
-variable selects it, so the entry points that do not name one
-(``lift_clip``, ``lift_2d_to_3d``) always run the kernel on the card.
-``lift_clips`` prints which filter ran.
+Every batch runs one filter, ``ops/filter_sgd.filter_sgd``: the CUDA
+kernel on a CUDA tensor, its plain loop on a CPU tensor, and an error on
+any other device.  No argument or environment variable selects another.
 
 ``lift_2d_to_3d`` keeps the reference's partitioned, append-on-checkpoint
 file contract (utils/utils.py:120-137) so long runs resume from the last
@@ -45,14 +40,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.data.io import
     load_binary,
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.lifting import (
-    filtering,
     init3d,
     pose2d,
 )
-from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops.filter_sgd import (
-    filter_sgd,
-    filter_sgd_plain,
-)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops.filter_sgd import filter_sgd
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops.lift_init import lift_init
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.parallel import (
     mesh as mesh_lib,
@@ -70,10 +61,6 @@ _PRUNE_THRESHOLD = 0.3
 _NOISE_SIGMA = 0.001
 _LR = 20.0
 _N_CYCLES = 900
-# the longest T-bucket that filter_impl='matpow' takes: its (B, 50, T, T)
-# float32 operators are B * 50 * T^2 * 4 bytes each (1.7 GB at B=128)
-MATPOW_MAX_T = 256
-FILTER_IMPLS = ("pallas", "xla", "matpow")
 # batches enqueued on the device before the oldest is fetched
 _IN_FLIGHT = 3
 
@@ -117,28 +104,10 @@ def _interleave(Yx, Yy, Yz):
     return torch.stack((Yx, Yy, Yz), dim=-1).reshape(*Yx.shape[:2], -1)
 
 
-def _lift_batch(kps, masks, noises, n_cycles: int, filter_impl: str = "pallas",
-                matpow_precision: str = "float32"):
+def _lift_batch(kps, masks, noises, n_cycles: int):
     with span("lift.init"):
         x0, y0, z0, Xx, Xy, Xw = _init_core(kps, masks, noises)
-    args = (x0, y0, z0, Xx, Xy, Xw, masks)
-    if filter_impl == "pallas":
-        Yx, Yy, Yz = filter_sgd(*args, _LR, n_cycles)
-    elif filter_impl == "matpow":
-        T = x0.shape[1]
-        if T > MATPOW_MAX_T:
-            raise ValueError(
-                f"filter_impl='matpow' materializes a (B, 50, {T}, {T}) operator; "
-                f"T={T} exceeds the supported bound {MATPOW_MAX_T}.  Use "
-                "filter_impl='pallas' for long-clip buckets.")
-        Yx, Yy, Yz = filtering.filter_xyz_matpow(
-            *args, learning_rate=_LR, n_cycles=n_cycles, precision=matpow_precision)
-    elif filter_impl == "xla":
-        Yx, Yy, Yz = filter_sgd_plain(*args, _LR, n_cycles)
-    else:
-        raise ValueError(f"unknown filter_impl {filter_impl!r}; expected one of "
-                         f"{FILTER_IMPLS}")
-    return _interleave(Yx, Yy, Yz)
+    return _interleave(*filter_sgd(x0, y0, z0, Xx, Xy, Xw, masks, _LR, n_cycles))
 
 
 def _clip_noise(T: int, sigma: float = _NOISE_SIGMA) -> np.ndarray:
@@ -202,17 +171,14 @@ def lift_clip(kp, n_cycles: int = _N_CYCLES, device="cuda") -> np.ndarray:
 
 
 def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
-               max_batch: int = 128, device="cuda", filter_impl: str = "pallas",
-               matpow_precision: str = "float32", mesh=None) -> list:
+               max_batch: int = 128, device="cuda", mesh=None) -> list:
     """Lift a list of (T_i, 150) clips to (T_i, 150) xyz, shape-bucketed.
 
     Clips group by T rounded up to a multiple of ``t_bucket``; each group
     runs in batches of at most ``max_batch`` clips, padded to a power of
     two (``_plan``, ``_pack``).  Batches are enqueued ahead and fetched
     behind (at most ``_IN_FLIGHT`` on the device), so the host stages batch
-    k+1 while the device computes batch k.  ``filter_impl`` ('pallas', 'xla'
-    or 'matpow') picks the filter and ``matpow_precision`` ('float32',
-    'tensorfloat32' or 'bfloat16') matpow's products.  ``mesh``: each rank
+    k+1 while the device computes batch k.  ``mesh``: each rank
     lifts its rows of every batch (module docstring); every rank returns
     all clips.  With the tracer on (``utils/profiling``): spans
     ``lift.pack`` (the plan, then each batch's packing and copies in),
@@ -225,12 +191,8 @@ def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
     if mesh is not None:
         mesh.check_device(dev)
         n_data = mesh.shape["data"]
-    if filter_impl not in FILTER_IMPLS:
-        raise ValueError(f"unknown filter_impl {filter_impl!r}; expected one of "
-                         f"{FILTER_IMPLS}")
-    at = f" at {matpow_precision}" if filter_impl == "matpow" else ""
     on = f"{dev}" if mesh is None else f"{mesh}"
-    print(f"lift_clips: {len(clips)} clips, filter {filter_impl!r}{at} on {on}", flush=True)
+    print(f"lift_clips: {len(clips)} clips on {on}", flush=True)
     out = [None] * len(clips)
     pending: list = []
 
@@ -252,7 +214,7 @@ def lift_clips(clips, n_cycles: int = _N_CYCLES, t_bucket: int = 64,
                 batch = [torch.from_numpy(a).to(dev) for a in batch]
             else:
                 batch = mesh_lib.local_rows(batch, mesh)[0]
-        res = _lift_batch(*batch, n_cycles, filter_impl, matpow_precision)
+        res = _lift_batch(*batch, n_cycles)
         if mesh is not None:
             res = mesh_lib.gather_rows(res, mesh.data_group, n_data)
         pending.append((chunk, res))

@@ -18,9 +18,7 @@ CPU's float32 ones, and TF32 must miss that bound.  The featurizer towers
 the same seeded weights: within 2^-15 of the output's largest value, the
 generators' raw-output rule, or for ResNet-50 where cuDNN breaks it, within
 twice the CPU's float32 error against float64.  The lifting alternatives:
-``filter_xyz`` and the single-clip v2 API launch the filter kernel; the
-closed form ``filter_xyz_matpow`` at 'float32' within 3e-4 of the kernel
-(the JAX package's matpow bound, test_pallas_kernels.py:62-82).  The mesh
+``filter_xyz`` and the single-clip v2 API launch the filter kernel.  The mesh
 paths on a one-rank NCCL group: a DP G step equals the step without a mesh
 at the step tolerances' loss bound (1e-5 relative) and launches the robust
 loss; sharded lifting launches the filter kernel and equals the unsharded
@@ -523,18 +521,6 @@ def test_filter_xyz_launches_the_kernel(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T", [(8, 64), (4, 256)])
-def test_filter_matpow_float32_matches_the_kernel(cuda, B, T):
-    """The closed form at 'float32' (TF32 off) within 3e-4 of the kernel on
-    the card at 900 cycles; at 'tensorfloat32' it is reported, not held."""
-    ins = _inputs(B, T, cuda, live=B)
-    want = fs.filter_sgd(*ins, 20.0, 900)
-    got = filtering.filter_xyz_matpow(*ins, 20.0, 900, precision="float32")
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, atol=3e-4, rtol=0)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("T", [64, 1920, 5000])
 def test_v2_single_clip_runs_the_kernel(cuda, T):
     """The single-clip v2 API is a batch of one through the kernel (one
@@ -662,8 +648,8 @@ def test_lift_clips_takes_the_init_kernel_once_a_batch(cuda):
 @pytest.mark.cuda
 def test_lifting_entry_points_run_the_kernel_whatever_the_environment(cuda, monkeypatch):
     """The JAX package's switches (MHPE_LIFT_FILTER=xla, MHPE_LIFT_PALLAS=0)
-    select nothing in the port: ``lift_clip`` and ``lift_clips`` without a
-    ``filter_impl`` launch the kernel on the card, one launch a batch."""
+    select nothing in the port: ``lift_clip`` and ``lift_clips`` launch the
+    kernel on the card, one launch a batch."""
     monkeypatch.setenv("MHPE_LIFT_FILTER", "xla")
     monkeypatch.setenv("MHPE_LIFT_PALLAS", "0")
     rng = np.random.RandomState(3)

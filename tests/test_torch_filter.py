@@ -59,7 +59,8 @@ def _jax_loop(inputs, n_cycles):
 
 
 @pytest.mark.parametrize(
-    "B,T,n_cycles", [(3, 40, 25), (5, 16, 25), (2, 64, 900)]
+    "B,T,n_cycles",
+    [(3, 40, 1), (3, 40, 2), (3, 40, 25), (3, 40, 57), (5, 16, 25), (2, 64, 900)],
 )
 def test_plain_filter_matches_jax_filter_xyz(rng, B, T, n_cycles):
     inputs = _filter_inputs(rng, B, T)

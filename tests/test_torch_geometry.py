@@ -62,7 +62,13 @@ def test_near_zero_and_near_pi(rng):
     np.testing.assert_allclose(r6d_ours[0], r6d_ref, atol=1e-6)
     back = t_rot.clip_rot6d_to_aa(torch.from_numpy(r6d_ours)).numpy()
     back_ref = np.asarray(rotations.clip_rot6d_to_aa(jnp.asarray(r6d_ref)))
-    np.testing.assert_allclose(back[0], back_ref, atol=1e-4)
+    # at exactly pi, aa and -aa are the same rotation and neither package
+    # fixes the sign: those rows are held up to it, the others as they are
+    at_pi = np.arange(64) >= 3 * (64 // 4)
+    b3, r3 = back[0].reshape(-1, 3), back_ref.reshape(-1, 3)
+    np.testing.assert_allclose(b3[~at_pi], r3[~at_pi], atol=1e-4)
+    pi_err = np.minimum(np.abs(b3 - r3).max(1), np.abs(b3 + r3).max(1))[at_pi]
+    assert pi_err.max() <= 1e-4, pi_err
     # and the round trip itself, up to the axis sign flip at exactly pi
     a3, b3 = aa.reshape(-1, 3), back.reshape(-1, 3)
     err = np.minimum(np.abs(a3 - b3).max(1), np.abs(a3 + b3).max(1))

@@ -51,10 +51,11 @@ Z_ATOL = 2e-3  # z, float32-ill-conditioned; see the module docstring
 LENGTHS = (30, 64, 100)  # two T-buckets (64, 128), two masked clips
 
 
-def _clip(rng, T):
+def _clip(rng, T, pruned=True):
     kp = rng.uniform(100, 500, size=(T, 150)).astype(np.float32)
     kp[:, 2::3] = rng.uniform(0.5, 1.0, size=(T, 50))
-    kp[T // 3, 2:24:3] = 0.1  # one frame below the prune threshold
+    if pruned:
+        kp[T // 3, 2:24:3] = 0.1  # one frame below the prune threshold
     return kp
 
 
@@ -255,10 +256,12 @@ def _assert_lift_close(ours, ref):
         assert np.linalg.norm(o3 - r3, axis=-1).mean() <= ATOL
 
 
-def test_lift_clips_matches_jax_xla(rng):
+@pytest.mark.parametrize("pruned", [True, False], ids=["pruned", "unpruned"])
+def test_lift_clips_matches_jax_xla(rng, pruned):
     """End to end at the production 900 cycles, three clips over two
-    T-buckets (30 and 64 share the 64 bucket, 30 masked; 100 pads to 128)."""
-    clips = [_clip(rng, T) for T in LENGTHS]
+    T-buckets (30 and 64 share the 64 bucket, 30 masked; 100 pads to 128),
+    with and without a frame below the prune threshold in each clip."""
+    clips = [_clip(rng, T, pruned) for T in LENGTHS]
     ours = t_engine.lift_clips(clips, n_cycles=900, device="cpu")
     ref = engine.lift_clips(clips, n_cycles=900, filter_impl="xla")
     assert [o.shape for o in ours] == [(T, 150) for T in LENGTHS]

@@ -4,15 +4,13 @@
   random rotations, angles near 0 and near pi included;
 * ``init3d.add_noise`` bit for bit with the same ``RandomState``, and
   ``initialization``'s ``rng`` / ``sigma`` draws;
-* ``filtering.filter_xyz_matpow`` against the JAX package's matpow and its
-  loop at 3e-4 (the JAX package's own bound, test_pallas_kernels.py:62-82),
-  exact at 0 cycles; ``filter_xyz`` goes through ``ops/filter_sgd``;
+* ``filter_xyz`` goes through ``ops/filter_sgd``;
 * ``backpropagation_based_filtering_v2`` against the JAX package's v2 at the
   lifting tolerances (x, y 2e-4; z 2e-3, float32-ill-conditioned, see
   tests/test_torch_lifting.py);
-* the engine at each ``filter_impl`` (the caller's argument alone picks it:
-  the JAX package's ``MHPE_LIFT_*`` switches select nothing here), the
-  T > 256 guard and the unknown-value errors;
+* the engine's one filter: the JAX package's ``MHPE_LIFT_*`` switches
+  select nothing here, and ``lift_clips`` refuses the JAX engine's filter
+  keywords; the batches in flight;
 * the demo CLI's five dumps against the root ``demo.py``'s, at the lifting
   tolerances plus the dumps' 7-digit rounding.
 """
@@ -44,7 +42,6 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
 )
 
 ROT_ATOL = 1e-5
-MATPOW_ATOL = 3e-4  # test_pallas_kernels.py:62-82
 ATOL = 2e-4  # lifting x, y (test_pallas_kernels.py:44)
 Z_ATOL = 2e-3  # lifting z (tests/test_torch_lifting.py)
 # the dumps' "%e" keeps 7 significant digits: |values| < 20 round within 1e-5
@@ -141,37 +138,6 @@ def _filter_inputs(rng, B=3, T=40):
     return (*planes, w * mask[:, :, None], mask)
 
 
-@pytest.mark.parametrize("n_cycles", [1, 2, 57, 900])
-def test_filter_matpow_matches_jax(rng, n_cycles):
-    """The closed form against the JAX package's matpow and its loop, on
-    masked clips and cycle counts that are not powers of two."""
-    ins = _filter_inputs(rng)
-    got = t_filtering.filter_xyz_matpow(*(torch.from_numpy(a) for a in ins),
-                                        learning_rate=20.0, n_cycles=n_cycles)
-    want = filtering.filter_xyz_matpow(*(jnp.asarray(a) for a in ins), learning_rate=20.0,
-                                       n_cycles=n_cycles, precision="highest")
-    loop = t_filtering.filter_xyz(*(torch.from_numpy(a) for a in ins[:6]), 20.0, n_cycles,
-                                  mask=torch.from_numpy(ins[6]))
-    for g, w, lp in zip(got, want, loop):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=MATPOW_ATOL)
-        np.testing.assert_allclose(g.numpy(), lp.numpy(), atol=MATPOW_ATOL)
-
-
-def test_filter_matpow_zero_cycles_and_precisions(rng):
-    ins = [torch.from_numpy(a) for a in _filter_inputs(rng, B=2, T=16)]
-    for out, x in zip(t_filtering.filter_xyz_matpow(*ins, n_cycles=0), ins):
-        assert torch.equal(out, x)
-    f32 = t_filtering.filter_xyz_matpow(*ins, n_cycles=57)
-    # on the CPU a float32 product is float32 whatever the TF32 switch
-    tf32 = t_filtering.filter_xyz_matpow(*ins, n_cycles=57, precision="tensorfloat32")
-    assert all(torch.equal(a, b) for a, b in zip(f32, tf32))
-    bf16 = t_filtering.filter_xyz_matpow(*ins, n_cycles=57, precision="bfloat16")
-    assert all(b.dtype == torch.float32 and torch.isfinite(b).all() for b in bf16)
-    assert max(float((a - b).abs().max()) for a, b in zip(f32, bf16)) > MATPOW_ATOL
-    with pytest.raises(ValueError, match="precision"):
-        t_filtering.filter_xyz_matpow(*ins, n_cycles=5, precision="highest")
-
-
 def test_filter_xyz_goes_through_the_kernel_wrapper(rng, monkeypatch):
     """The public loop is ``ops/filter_sgd.filter_sgd`` (the kernel on a
     CUDA tensor): a mask of ones when none is given."""
@@ -238,72 +204,25 @@ def _clips(rng, lengths=(30, 64, 100)):
     return out
 
 
-def _hold_lifted(got, want):
-    for g, w in zip(got, want):
-        g, w = g.reshape(-1, 50, 3), np.asarray(w).reshape(-1, 50, 3)
-        np.testing.assert_allclose(g[..., :2], w[..., :2], atol=ATOL)
-        np.testing.assert_allclose(g[..., 2], w[..., 2], atol=Z_ATOL)
-        assert np.linalg.norm(g - w, axis=-1).mean() <= ATOL
-
-
-@pytest.mark.parametrize("impl,jax_impl", [
-    ("pallas", "xla"), ("xla", "xla"), ("matpow", "matpow"),
-])
-def test_engine_filter_impls_match_jax(rng, impl, jax_impl, capsys):
-    """Each ``filter_impl`` of the port against the JAX engine's (the JAX
-    'pallas' runs in interpret mode on the CPU, too slow at 900 cycles:
-    the port's 'pallas', its plain loop here, is held against JAX 'xla')."""
-    clips = _clips(rng)
-    got = t_engine.lift_clips(clips, n_cycles=900, device="cpu", filter_impl=impl)
-    assert f"filter {impl!r}" in capsys.readouterr().out
-    want = engine.lift_clips(clips, n_cycles=900, filter_impl=jax_impl)
-    _hold_lifted(got, want)
-
-
 def test_engine_switches(rng, monkeypatch, capsys):
-    """Only the caller's ``filter_impl`` picks the filter: the JAX package's
-    environment switches (MHPE_LIFT_FILTER, MHPE_LIFT_PALLAS,
-    MHPE_MATPOW_PRECISION) select nothing here, so ``lift_clip`` and
-    ``lift_clips`` without one run the kernel's wrapper; an explicit
-    ``filter_impl`` and ``matpow_precision`` reach the batch."""
+    """The engine has one filter: the JAX package's environment switches
+    (MHPE_LIFT_FILTER, MHPE_LIFT_PALLAS, MHPE_MATPOW_PRECISION) select
+    nothing here, so ``lift_clip`` and ``lift_clips`` run the kernel's
+    wrapper, and ``lift_clips`` refuses the JAX engine's keywords."""
     monkeypatch.setenv("MHPE_LIFT_FILTER", "xla")
     monkeypatch.setenv("MHPE_LIFT_PALLAS", "0")
     monkeypatch.setenv("MHPE_MATPOW_PRECISION", "bfloat16")
     ran = []
-    real = t_engine._lift_batch
-    monkeypatch.setattr(t_engine, "_lift_batch",
-                        lambda *a: ran.append(a[4:]) or real(*a))
+    real = t_engine.filter_sgd
+    monkeypatch.setattr(t_engine, "filter_sgd", lambda *a: ran.append(a[-1]) or real(*a))
     clip = _clips(rng, (8,))
     t_engine.lift_clips(clip, n_cycles=3, device="cpu")
     t_engine.lift_clip(clip[0], n_cycles=3, device="cpu")
-    t_engine.lift_clips(clip, n_cycles=3, device="cpu", filter_impl="xla")
-    t_engine.lift_clips(clip, n_cycles=3, device="cpu", filter_impl="matpow",
-                        matpow_precision="bfloat16")
-    t_engine.lift_clips(clip, n_cycles=3, device="cpu", filter_impl="matpow")
-    assert ran == [("pallas", "float32"), ("pallas", "float32"), ("xla", "float32"),
-                   ("matpow", "bfloat16"), ("matpow", "float32")]
-    out = capsys.readouterr().out
-    assert out.count("filter 'pallas'") == 2 and "at bfloat16" in out
-    with pytest.raises(TypeError):
-        t_engine.lift_clips(clip, n_cycles=3, device="cpu", use_pallas=False)
-    with pytest.raises(ValueError, match="precision 'float16'"):
-        t_engine.lift_clips(clip, n_cycles=3, device="cpu", filter_impl="matpow",
-                            matpow_precision="float16")
-
-
-def test_engine_refuses_unknown_impls_and_long_matpow_buckets(rng):
-    with pytest.raises(ValueError, match="unknown filter_impl"):
-        t_engine.lift_clips(_clips(rng, (8,)), n_cycles=1, device="cpu", filter_impl="tpu")
-    kps, masks, noises = (torch.from_numpy(a) for a in t_engine._pack(
-        [(0, _clips(rng, (300,))[0])], 320))
-    with pytest.raises(ValueError, match="exceeds the supported bound 256"):
-        t_engine._lift_batch(kps, masks, noises, 1, "matpow")
-    with pytest.raises(ValueError, match="unknown filter_impl"):
-        t_engine._lift_batch(kps, masks, noises, 1, "tpu")
-    # T = 256 is the last bucket matpow takes
-    out = t_engine.lift_clips(_clips(rng, (250,)), n_cycles=2, device="cpu",
-                              filter_impl="matpow")
-    assert out[0].shape == (250, 150) and np.isfinite(out[0]).all()
+    assert ran == [3, 3]
+    assert capsys.readouterr().out.count("lift_clips: 1 clips on cpu") == 2
+    for kw in ({"filter_impl": "xla"}, {"matpow_precision": "float32"}, {"use_pallas": False}):
+        with pytest.raises(TypeError):
+            t_engine.lift_clips(clip, n_cycles=3, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("depth", ["0", "1", "3"])

@@ -19,9 +19,10 @@ Checked:
   3 trains D): at the learning rate 1e-4 of the first configuration its
   whole G train and val series and the inference L1 of every split within
   1e-5 relative of the root's; at the 1e-3 of the second, epoch 0's G
-  train loss within 1e-5 of the root's, the whole series within 1e-5 x 10
-  of the port's own trainer in float64 from the same weights, and the
-  inference L1 within 1e-5 x 10 of the root's (see below); each
+  train loss within 1e-5 of the root's, the whole series within ``_rtol``
+  (twice the port's measured gap, under 1e-5 x 10) of the port's own
+  trainer in float64 from the same weights, and the inference L1 within
+  ``_rtol`` of the root's (see below); each
   configuration's D epoch, from the root's own state after epoch 2,
   through both trainers within 1e-5; the GT and enhanced classifier val
   accuracies within one val window's share;
@@ -41,15 +42,17 @@ Checked:
 The comparison's tolerance.  1e-5 relative is the train CLI's
 (tests/test_torch_train_cli.py), whose room is for the sign flips of
 noise-sized gradients in Adam's first steps: each flipped entry moves by
-2 lr, so the room grows with lr.  On this fixture at lr 1e-3 the JAX
-package's own first v2+text G step (float32, CPU) puts 21 generator
-entries 2 lr from a float64 step of the same state, and the next step's
-loss 6.7e-5 from float64's, while the port's step moves none (its loss
-1.5e-7 from float64's; ``pytest -s`` prints the three;
-``test_the_roots_first_step_at_lr_1e3_leaves_float64`` measures this).  So
+2 lr, so the room grows with lr.  Whether the JAX package's float32 step
+flips any depends on its CPU build: on this fixture at lr 1e-3 its first
+v2+text G step once put 21 generator entries 2 lr from a float64 step of
+the same state (the next step's loss 6.7e-5 from float64's), and later
+none (4.9e-6); the port's step moves none (its loss 1.5e-7 from
+float64's; ``pytest -s`` prints the readings;
+``test_the_roots_first_step_at_lr_1e3_leaves_float64`` measures them).  So
 past its first epoch the second configuration is held against float64, at
-1e-5 x (1e-3 / 1e-4): at epoch 2 the root's G train loss is 4.3e-4 from
-float64's and the port's 5.0e-5 (when this was written).
+``_rtol``: twice the port's largest gap to float64 over the replay's G
+epochs (4.94e-5, epoch 2's train loss, when this was written), capped at
+1e-5 x (1e-3 / 1e-4).
 
 The port's GIFs are rendered from the first 2 frames of each clip (the
 renderer wrapped for the whole module): a 192-frame window takes ~40 s on
@@ -445,9 +448,21 @@ def _config(name):
     return cfg
 
 
+# The port's float32 G series at lr 1e-3 against its own trainer in float64
+# from the same weights: the largest relative gap over the replay's three G
+# epochs, train and val losses (epoch 2's train loss, CPU, when this was
+# written), and the margin it is held to for another CPU's float32 rounding.
+PORT_F64_GAP_AT_1E3 = 4.942e-5
+GAP_MARGIN = 2.0
+
+
 def _rtol(name):
-    """LOSS_RTOL, scaled by the configuration's learning rate over 1e-4."""
-    return LOSS_RTOL * _config(name)["learning_rate"] / 1e-4
+    """LOSS_RTOL at lr 1e-4; above it GAP_MARGIN x PORT_F64_GAP_AT_1E3,
+    never more than LOSS_RTOL scaled by the learning rate over 1e-4."""
+    lr = _config(name)["learning_rate"]
+    if lr <= 1e-4:
+        return LOSS_RTOL
+    return min(GAP_MARGIN * PORT_F64_GAP_AT_1E3, LOSS_RTOL * lr / 1e-4)
 
 
 def _series(work, name, key):
@@ -562,11 +577,12 @@ def test_replay_report_has_the_roots_keys(both):
 
 def test_the_roots_first_step_at_lr_1e3_leaves_float64(both, tmp_path):
     """The measurement behind the second configuration's tolerance: on the
-    replay's own first batch, the JAX package's float32 G step at lr 1e-3
-    moves some generator entries 2 lr from a float64 step of the same state
-    (Adam's sign of a noise-sized gradient), the port's float32 step moves
-    none, and the next step's loss is off float64's by more than 1e-5 in the
-    JAX package and less in the port (both within the scaled tolerance)."""
+    replay's own first batch at lr 1e-3, the port's float32 G step moves no
+    generator entry lr from a float64 step of the same state and its next
+    loss is within 1e-5 of float64's, and the JAX package's next loss is
+    within ``_rtol``.  How many entries the JAX package's float32 step
+    moves 2 lr (Adam's sign of a noise-sized gradient) depends on its CPU
+    build, so it is printed, with its loss's gap, and not held."""
     cfg = root_replay.CONFIGS[1]
     lr = cfg["learning_rate"]
     data = j_data.load_data(str(both["dirs"]["jax"] / "video_data"), cfg["pipeline"],
@@ -607,12 +623,12 @@ def test_the_roots_first_step_at_lr_1e3_leaves_float64(both, tmp_path):
             keys = [k for k in got_jax if "num_batches" not in k]
             flips = sum(int(((got_jax[k].double() - want[k]).abs() > lr).sum()) for k in keys)
             port_off = max(float((got_port[k].double() - want[k]).abs().max()) for k in keys)
-            assert flips > 0 and port_off < lr, (flips, port_off)
+            assert port_off < lr, (flips, port_off)
     j_loss, p_loss, f64_loss = losses[1]
     j_rel, p_rel = abs(j_loss / f64_loss - 1), abs(p_loss / f64_loss - 1)
     print(f"entries 2 lr off float64 {flips}; next loss off float64: JAX {j_rel:.3e}, "
           f"port {p_rel:.3e}")
-    assert p_rel <= LOSS_RTOL < j_rel <= _rtol(cfg["name"]), (j_rel, p_rel)
+    assert p_rel <= LOSS_RTOL and j_rel <= _rtol(cfg["name"]), (flips, j_rel, p_rel)
 
 
 # (d) the port alone: every stage and --resume ------------------------------

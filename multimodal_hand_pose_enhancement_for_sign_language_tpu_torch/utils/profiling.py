@@ -17,7 +17,9 @@ Names are ``<layer>.<part>``: ``lift.*`` in ``lifting/engine.lift_clips``
 along the bone tree took the CUDA kernel),
 ``train.*`` in ``train/gan.GanTrainer``'s steps (``train.dead_branch`` in
 v4_deeper's train-mode forward, ``models/generators``), ``infer.*`` in
-``infer.run_inference``.
+``infer.run_inference``, the counts ``convert.calls`` and
+``convert.staged_bytes`` in ``ops/batching.apply_clipwise`` (the conversions'
+calls and their bytes through page-locked memory).
 """
 
 from __future__ import annotations

@@ -24,7 +24,9 @@ at the step tolerances' loss bound (1e-5 relative) and launches the robust
 loss; sharded lifting launches the filter kernel and equals the unsharded
 lifting within 1e-6.  The lifting's initialisation (``lift_init``) equals
 its plain version bit for bit: its z is ill-conditioned, so nothing less
-keeps the lifting's result.
+keeps the lifting's result.  The conversions' flat calls through page-locked
+staging (``ops/batching``) equal the clip functions applied clip by clip on
+the card, bit for bit.
 """
 
 import numpy as np
@@ -659,6 +661,54 @@ def test_lifting_entry_points_run_the_kernel_whatever_the_environment(cuda, monk
     engine.lift_clips(clips, n_cycles=20, device=cuda)
     assert fs.filter_sgd.launches - before == 3
 
+
+
+def _ragged_xyz(n, seed):
+    """``n`` clips of lengths drawn like the lift cell's (lognormal, median
+    256, 32-1,920 frames), the first two 1 and 1,920 frames long."""
+    rng = np.random.RandomState(seed)
+    lengths = np.clip(np.rint(rng.lognormal(np.log(256), 0.668, n)), 32, 1920).astype(int)
+    lengths[:2] = (1, 1920)
+    return [rng.standard_normal((T, 150)).astype(np.float32) for T in lengths]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,chunk,stage", [(778, None, None), (40, 1000, 1000 * 150 * 4)],
+                         ids=["partition", "chunks_and_pieces"])
+def test_flat_conversions_on_the_card_equal_clip_by_clip(cuda, monkeypatch, n, chunk, stage):
+    """``xyz_to_aa`` then ``aa_to_rot6d`` through the page-locked staging
+    equal ``clip_xyz_to_aa`` / ``clip_aa_to_rot6d`` applied clip by clip on
+    the card, bit for bit: a partition of the lift cell's size in one call a
+    conversion, and small chunks whose 288-wide result comes back in pieces
+    through a smaller stage."""
+    from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.ops import (
+        batching,
+        kinematics,
+        rotations,
+    )
+
+    if chunk is not None:
+        monkeypatch.setattr(batching, "CHUNK_FRAMES", chunk)
+        monkeypatch.setattr(batching, "STAGE_BYTES", stage)
+        monkeypatch.setattr(batching, "_stage", [])
+    xyz = _ragged_xyz(n, seed=19)
+    frames = sum(len(c) for c in xyz)
+    profiling.enable()
+    try:
+        aa = kinematics.xyz_to_aa(xyz, device=cuda)
+        r6d = rotations.aa_to_rot6d(aa, device=cuda)
+        counts = profiling.snapshot()["counts"]
+    finally:
+        profiling.disable()
+    calls = 1 if chunk is None else -(-frames // chunk)
+    assert counts["convert.calls"] == 2 * calls
+    assert counts["convert.staged_bytes"] == 4 * frames * (150 + 144 + 144 + 288)
+    for x, a, r in zip(xyz, aa, r6d):
+        old_aa = kinematics.clip_xyz_to_aa(torch.from_numpy(x).to(cuda))
+        np.testing.assert_array_equal(a, old_aa.cpu().numpy())
+        np.testing.assert_array_equal(r, rotations.clip_aa_to_rot6d(old_aa).cpu().numpy())
+    assert not torch.from_numpy(aa[0]).is_pinned()
+    assert not torch.from_numpy(r6d[0]).is_pinned()
 
 
 @pytest.fixture

@@ -21,6 +21,8 @@ trainer's own ``torch.Generator``.  State-dict hooks rename the layers'
 ``lstm.<k>.weight_ih_l0`` to the reference's ``lstm.weight_ih_l<k>`` and
 back.  With ``remat=True`` each layer runs under ``torch.utils.checkpoint``:
 its activations are recomputed in the backward pass instead of kept.
+With the tracer on (``utils/profiling``) each call of a layer's ``nn.LSTM``
+adds one to the counter ``classif.rnn_calls``, a recomputed one too.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.models.layers 
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
     resolve_device,
 )
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.profiling import count
 
 # lstm.<layer>.<name>_l0[_reverse] (the modules) <-> lstm.<name>_l<layer>[_reverse]
 _OWN_KEY = re.compile(r"^lstm\.(\d+)\.(weight_ih|weight_hh|bias_ih|bias_hh)_l0(_reverse)?$")
@@ -62,6 +65,11 @@ def _from_reference_keys(module, state_dict, prefix, *args):
         if m:
             name, layer, rev = m.groups()
             state_dict[f"{prefix}lstm.{layer}.{name}_l0{rev or ''}"] = state_dict.pop(key)
+
+
+def _run_layer(layer, x):
+    count("classif.rnn_calls")
+    return layer(x)[0]
 
 
 class ClassifLSTM(nn.Module):
@@ -89,10 +97,10 @@ class ClassifLSTM(nn.Module):
         last = len(self.lstm) - 1
         for k, layer in enumerate(self.lstm):
             if self.remat and torch.is_grad_enabled():
-                h = checkpoint(lambda x, layer=layer: layer(x)[0], h,
-                               use_reentrant=False, preserve_rng_state=False)
+                h = checkpoint(_run_layer, layer, h, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
-                h = layer(h)[0]
+                h = _run_layer(layer, h)
             if k < last:
                 h = self.drop(h)
         return self.Linear(h)

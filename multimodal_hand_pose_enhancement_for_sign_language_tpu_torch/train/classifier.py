@@ -13,6 +13,14 @@ TF32, and for cuBLAS; both switches restored afterwards.  Inter-layer
 dropout draws from the trainer's own ``torch.Generator`` on the module's
 device.
 
+With the tracer on (``utils/profiling``) each train step is the span
+``classif.train_step``, holding ``classif.forward`` (the logits and the
+loss), ``classif.backward`` (``loss.backward``) and ``classif.optim``
+(``zero_grad``; the reduction over 'data' and ``opt.step``); each eval step
+is ``classif.eval_step``, and each batch's copy in ``classif.h2d``.  The
+counter ``classif.frames`` adds the rows times the timesteps of every train
+or eval step.
+
 With a ``mesh`` (``parallel/mesh.get_mesh``) the train step is the JAX
 trainer's data-parallel one (tests/test_multichip.py): the weights are
 broadcast at start, each rank computes its rows of the global batch (its
@@ -58,6 +66,10 @@ from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.train.staging 
 )
 from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.device import (
     resolve_device,
+)
+from multimodal_hand_pose_enhancement_for_sign_language_tpu_torch.utils.profiling import (
+    count,
+    span,
 )
 
 
@@ -163,14 +175,19 @@ class ClassifierTrainer:
             (x, labels), sharded = mesh_lib.local_rows((x, labels), self.mesh)
             self._rows.set(self.mesh if sharded else None)
         self.module.train()
-        with conv_matmul_precision("float32"):
-            logits = self._logits(x)
-            loss = F.cross_entropy(logits, labels)
-            self.opt.zero_grad(set_to_none=True)
-            loss.backward()
+        with span("classif.train_step"), conv_matmul_precision("float32"):
+            count("classif.frames", _frames(x))
+            with span("classif.forward"):
+                logits = self._logits(x)
+                loss = F.cross_entropy(logits, labels)
+            with span("classif.optim"):
+                self.opt.zero_grad(set_to_none=True)
+            with span("classif.backward"):
+                loss.backward()
             correct = (logits.detach().argmax(-1) == labels).sum()
-            loss, correct = self._reduce(loss.detach(), correct, sharded)
-            self.opt.step()
+            with span("classif.optim"):
+                loss, correct = self._reduce(loss.detach(), correct, sharded)
+                self.opt.step()
         return loss, correct
 
     def _reduce(self, loss, correct, sharded):
@@ -195,18 +212,21 @@ class ClassifierTrainer:
     def eval_step(self, x, labels):
         """(loss, correct count, predictions) as device tensors."""
         self.module.eval()
-        with conv_matmul_precision("float32"):
-            logits = self._logits(x)
-            loss = F.cross_entropy(logits, labels)
-        pred = logits.argmax(-1)
+        with span("classif.eval_step"):
+            count("classif.frames", _frames(x))
+            with conv_matmul_precision("float32"):
+                logits = self._logits(x)
+                loss = F.cross_entropy(logits, labels)
+            pred = logits.argmax(-1)
         return loss, (pred == labels).sum(), pred
 
     # ------------------------------------------------------------------
     # epochs over host arrays (labels 1-based, shifted here)
     # ------------------------------------------------------------------
     def _batch(self, X, Y, sl):
-        x = torch.from_numpy(np.ascontiguousarray(X[sl])).to(self.device)
-        y = torch.from_numpy(np.asarray(Y[sl], np.int64) - 1).to(self.device)
+        with span("classif.h2d"):
+            x = torch.from_numpy(np.ascontiguousarray(X[sl])).to(self.device)
+            y = torch.from_numpy(np.asarray(Y[sl], np.int64) - 1).to(self.device)
         return x, y
 
     def train_epoch(self, X, Y, batch_size: int):
@@ -263,6 +283,11 @@ class ClassifierTrainer:
         reference's key layout, the optimizer's moments and step."""
         return {"epoch": int(epoch), "state_dict": self.module.state_dict(),
                 "optimizer": self.opt.state_dict()}
+
+
+def _frames(x):
+    """Rows times timesteps of a (B, T, D) batch; rows of a (B, D) one."""
+    return x.shape[0] * (x.shape[1] if x.dim() == 3 else 1)
 
 
 def _epoch_result(out, denom):

@@ -19,7 +19,10 @@ along the bone tree took the CUDA kernel),
 v4_deeper's train-mode forward, ``models/generators``), ``infer.*`` in
 ``infer.run_inference``, the counts ``convert.calls`` and
 ``convert.staged_bytes`` in ``ops/batching.apply_clipwise`` (the conversions'
-calls and their bytes through page-locked memory).
+calls and their bytes through page-locked memory), ``classif.*`` in
+``train/classifier.ClassifierTrainer``'s steps and batch copies (the count
+``classif.rnn_calls`` in ``models/classifier.ClassifLSTM``, one a layer's
+LSTM call).
 """
 
 from __future__ import annotations
